@@ -1,0 +1,232 @@
+"""The paper's online loop end to end, on one device (port of the serving
+half of ``repro.uvm.runtime``).  Per group of accesses:
+
+  1. ``manager.observe(FaultBatch)`` — classify the group, predict each
+     access's next page delta with the pattern's model (strictly before
+     training on it), update the prediction-frequency table and return the
+     staged prefetches + dense counters (Section IV-D)
+  2. :func:`_apply_actions` — export the counters to the simulator's
+     ``learned`` eviction keys and stage the prefetches
+  3. ``simulator.run_segment`` — demand migration + learned eviction
+  4. ``manager.feedback(Outcomes)`` — advance the flush cadence and
+     fine-tune; only the frozen case (``TrainConfig.epochs == 0``) is
+     ported, training is the next slice (ROADMAP.md)
+
+Model, frequency table and simulator state live on the device (``"cuda"``
+unless the caller passes ``device="cpu"``).  Pretrained tables come from
+the JAX package's memo pickles (:func:`load_pretrain_memo`) or from the
+``.npz`` written by ``scripts/export_torch_reference.py``
+(:func:`load_pretrained`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import io
+import pickle
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch import convert
+from repro_torch.configs.predictor_paper import PredictorConfig
+from repro_torch.core.incremental import TrainConfig
+from repro_torch.core.model_table import ModelTable
+from repro_torch.device import resolve_device
+from repro_torch.optim.adamw import OptState
+from repro_torch.uvm import simulator as S
+from repro_torch.uvm import timing
+from repro_torch.uvm.manager import FaultBatch, ManagerConfig, Outcomes, OversubscriptionManager
+from repro_torch.uvm.trace import PAGES_PER_BLOCK, Trace
+
+@dataclasses.dataclass
+class LearnedRunResult:
+    stats: dict
+    top1: float
+    n_predictions: int
+    n_classes: int
+    n_models: int
+    per_group_acc: list
+    warm_top1: float = 0.0  # excludes each pattern-model's first (cold) group
+    n_accesses: int = 0
+
+    def ipc(self, pred_overhead_us: float = 1.0, n_accesses: int | None = None) -> float:
+        # the predictor runs asynchronously with kernel execution; only
+        # predictions consumed on the fault path serialise, so the overhead
+        # is charged per far-fault (Section V-A/C, Fig. 13)
+        if n_accesses is None:
+            n_accesses = self.n_accesses
+        if not n_accesses:
+            raise ValueError("n_accesses is 0; pass ipc(..., n_accesses=len(trace)) explicitly")
+        charged = min(self.n_predictions, self.stats["faults"])
+        return timing.ipc(self.stats, n_accesses, pred_overhead_us=pred_overhead_us, n_predictions=charged)
+
+
+def _pretrain_cache_key(corpus, pcfg, tcfg, kind, target_acc, max_rounds) -> str:
+    """The JAX package's pretrain memo key (``pretrain_<key>.pkl``)."""
+    h = hashlib.md5()
+    for tr in corpus:
+        h.update(tr.name.encode())
+        h.update(str(tr.n_pages).encode())
+        for arr in (tr.page, tr.pc, tr.tb, tr.kernel):
+            h.update(np.ascontiguousarray(arr))
+    h.update(repr((pcfg, dataclasses.astuple(tcfg), kind, target_acc, max_rounds)).encode())
+    return h.hexdigest()[:16]
+
+
+class _MemoUnpickler(pickle.Unpickler):
+    """Unpickles a JAX-package memo without importing that package: every
+    ``repro.*`` global maps to the port's own class."""
+
+    REMAP = {("repro.optim.adamw", "OptState"): OptState}
+
+    def find_class(self, module, name):
+        if module == "repro" or module.startswith("repro."):
+            try:
+                return self.REMAP[(module, name)]
+            except KeyError:
+                raise pickle.UnpicklingError(f"no port-side class for {module}.{name}") from None
+        return super().find_class(module, name)
+
+
+def _unpickle(data: bytes):
+    return _MemoUnpickler(io.BytesIO(data)).load()
+
+
+def load_pretrain_memo(path: str | Path, pcfg: PredictorConfig, device: str | torch.device = "cuda") -> ModelTable:
+    """A JAX-package pretrain memo (``experiments/cache/pretrain_*.pkl``, the
+    raw host table or its checksummed envelope) as a table on ``device``."""
+    obj = _unpickle(Path(path).read_bytes())
+    if isinstance(obj, dict) and "sha256" in obj and "payload" in obj:
+        if hashlib.sha256(obj["payload"]).hexdigest() != obj["sha256"]:
+            raise ValueError(f"pretrain memo {path} fails its checksum")
+        obj = _unpickle(obj["payload"])
+    return convert.table_from_blob(obj, pcfg, device)
+
+
+def load_pretrained(path: str | Path, pcfg: PredictorConfig, device: str | torch.device = "cuda") -> ModelTable:
+    """A pretrained table from a memo pickle or an exported ``.npz``."""
+    if Path(path).suffix == ".npz":
+        return convert.table_from_blob(convert.blob_from_npz(path), pcfg, device)
+    return load_pretrain_memo(path, pcfg, device)
+
+
+def _manager_config(trace: Trace, pcfg: PredictorConfig, tcfg: TrainConfig, *, oversubscription: float,
+                    kind: str, use_thrash_term: bool, use_lucir: bool, reclass_interval: int = 0,
+                    reclass_hysteresis: int = 2, health=None) -> ManagerConfig:
+    return ManagerConfig(
+        predictor=pcfg, train=tcfg, kind=kind,
+        n_pages=trace.n_pages,
+        n_blocks=S.bucket_blocks(trace.n_blocks),
+        capacity=S.capacity_for(trace.n_blocks, oversubscription),
+        use_thrash_term=use_thrash_term, use_lucir=use_lucir,
+        reclass_interval=reclass_interval, reclass_hysteresis=reclass_hysteresis,
+        health=health,
+    )
+
+
+def manager_for(
+    trace: Trace,
+    pcfg: PredictorConfig | None = None,
+    tcfg: TrainConfig | None = None,
+    *,
+    oversubscription: float = 1.25,
+    kind: str = "transformer",
+    table: ModelTable | None = None,
+    use_thrash_term: bool = True,
+    use_lucir: bool = True,
+    reclass_interval: int = 0,
+    reclass_hysteresis: int = 2,
+    health=None,
+    device: str | torch.device = "cuda",
+) -> OversubscriptionManager:
+    """An :class:`OversubscriptionManager` configured for one trace's
+    geometry (padded block bucket + oversubscribed capacity)."""
+    cfg = _manager_config(
+        trace, pcfg or PredictorConfig(), tcfg or TrainConfig(),
+        oversubscription=oversubscription, kind=kind,
+        use_thrash_term=use_thrash_term, use_lucir=use_lucir,
+        reclass_interval=reclass_interval, reclass_hysteresis=reclass_hysteresis,
+        health=health,
+    )
+    return OversubscriptionManager(cfg, table=table, device=device)
+
+
+def _group_batch(trace: Trace, g0: int, g1: int) -> FaultBatch:
+    return FaultBatch(trace.page[g0:g1], trace.pc[g0:g1], trace.tb[g0:g1], trace.kernel[g0:g1])
+
+
+def _apply_actions(state: S.SimState, actions, nb: int, cap: int, evict_pref=None) -> S.SimState:
+    """Stage one batch's actions into the simulator state: export the dense
+    counters to the `learned` eviction keys, then apply the prefetches
+    (``counters is None``: the gate was closed, nothing to stage)."""
+    if actions.counters is None:
+        return state
+    state = dataclasses.replace(state, freq=actions.counters)
+    mask = torch.zeros(nb, dtype=torch.bool, device=state.device)
+    mask[torch.as_tensor(actions.prefetch_blocks, device=state.device)] = True
+    return S.apply_prefetch(state, mask, capacity=cap, policy="learned", evict_pref=evict_pref)
+
+
+def _state_stats(state: S.SimState) -> dict:
+    return {
+        "pages_thrashed": int(state.thrash_events) * PAGES_PER_BLOCK,
+        "faults": int(state.faults),
+        "migrated_blocks": int(state.migrations),
+        "zero_copy": int(state.zero_copy),
+        "occupancy": int(state.occupancy),
+    }
+
+
+def run_ours(
+    trace: Trace,
+    pcfg: PredictorConfig | None = None,
+    tcfg: TrainConfig | None = None,
+    *,
+    oversubscription: float = 1.25,
+    kind: str = "transformer",
+    table: ModelTable | None = None,
+    use_thrash_term: bool = True,
+    use_lucir: bool = True,
+    manager: OversubscriptionManager | None = None,
+    reclass_interval: int = 0,
+    reclass_hysteresis: int = 2,
+    health=None,
+    device: str | torch.device = "cuda",
+) -> LearnedRunResult:
+    """Drive one trace through the streaming manager + simulator on
+    ``device`` (a passed ``manager`` brings its own device)."""
+    if trace.tenant is not None:
+        raise NotImplementedError("tenant-tagged traces need TenantMux, which is not ported yet")
+    pcfg = pcfg or PredictorConfig()
+    tcfg = tcfg or TrainConfig()
+    if manager is not None:
+        mgr = manager
+    else:
+        mgr = manager_for(
+            trace, pcfg, tcfg, oversubscription=oversubscription, kind=kind,
+            table=table, use_thrash_term=use_thrash_term, use_lucir=use_lucir,
+            reclass_interval=reclass_interval, reclass_hysteresis=reclass_hysteresis,
+            health=health, device=resolve_device(device),
+        )
+    nb, cap = mgr.cfg.n_blocks, mgr.cfg.capacity
+    state = S.init_state(nb, mgr.device)
+    blocks = trace.block.astype(np.int32)
+    nxt = S.next_use_for(trace)
+    n = len(trace)
+    G = mgr.cfg.train.group_size
+    for g0 in range(0, n, G):
+        g1 = min(g0 + G, n)
+        actions = mgr.observe(_group_batch(trace, g0, g1))
+        state = _apply_actions(state, actions, nb, cap)
+        state, outs = S.run_segment(
+            state, blocks[g0:g1], nxt[g0:g1],
+            capacity=cap, policy="learned", prefetch="demand", n_valid=trace.n_blocks,
+        )
+        mgr.feedback(Outcomes(was_evicted=outs["was_evicted"], fault_count=int(state.fault_count)))
+    return LearnedRunResult(
+        _state_stats(state), mgr.top1, mgr.n_predictions, mgr.n_classes,
+        mgr.n_models, mgr.per_group, mgr.warm_top1, n,
+    )
+

@@ -1,0 +1,101 @@
+"""The PyTorch port stands alone: importing it loads neither JAX nor any
+module of the JAX package, and its entry points run on the card unless the
+caller asks for the CPU."""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+
+_CHILD = """
+import importlib, json, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
+print(json.dumps({"modules": len(names), "leaked": leaked}))
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", _CHILD], capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["modules"] >= 25
+    assert res["leaked"] == []
+
+
+def test_port_sources_name_no_jax_import():
+    for path in (SRC / "repro_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            assert not s.startswith(("import jax", "from jax", "import repro.", "from repro.", "from repro import")), \
+                f"{path}: {s}"
+
+
+def test_entry_points_default_to_the_card():
+    from repro_torch.configs.predictor_paper import SMOKE
+    from repro_torch.core import predictor
+    from repro_torch.core.incremental import TrainConfig, Trainer
+    from repro_torch.core.policy import PredictionFrequencyTable
+    from repro_torch.models.params import init_params
+    from repro_torch.uvm import runtime as R
+    from repro_torch.uvm import simulator as S
+    from repro_torch.uvm import trace as T
+    from repro_torch.uvm.manager import ManagerConfig, OversubscriptionManager
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default device is usable here")
+    tr = T.get_trace("AddVectors", 0.1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        R.run_ours(tr, SMOKE, TrainConfig(epochs=0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        R.manager_for(tr, SMOKE)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OversubscriptionManager(ManagerConfig(predictor=SMOKE))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(SMOKE, TrainConfig())
+    # the public functions below the manager default to the card too
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        S.init_state(64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PredictionFrequencyTable()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predictor.init(0, SMOKE)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(0, predictor.param_specs(SMOKE))
+    # the same entry points run when the caller asks for the CPU
+    assert OversubscriptionManager(ManagerConfig(predictor=SMOKE), device="cpu").device.type == "cpu"
+    assert S.init_state(64, "cpu").device.type == "cpu"
+    assert PredictionFrequencyTable(device="cpu").tags.device.type == "cpu"
+    assert predictor.init(0, SMOKE, "cpu")["embed/page"].device.type == "cpu"
+
+
+def test_unported_options_raise():
+    from repro_torch.configs.predictor_paper import SMOKE
+    from repro_torch.core.incremental import TrainConfig, Trainer
+    from repro_torch.core.model_table import Entry
+    from repro_torch.uvm import runtime as R
+    from repro_torch.uvm import trace as T
+    from repro_torch.uvm.manager import ManagerConfig, OversubscriptionManager
+
+    with pytest.raises(NotImplementedError, match="training"):
+        Trainer(SMOKE, TrainConfig(epochs=1), device="cpu").train_group(Entry(params={}), None, 2)
+    with pytest.raises(NotImplementedError, match="health"):
+        OversubscriptionManager(ManagerConfig(predictor=SMOKE, health=object()), device="cpu")
+    with pytest.raises(NotImplementedError, match="freq_table"):
+        OversubscriptionManager(ManagerConfig(predictor=SMOKE, freq_table="lru"), device="cpu")
+    tr = T.get_trace("AddVectors", 0.1)
+    tagged = T.Trace(tr.name, tr.page, tr.pc, tr.tb, tr.kernel, tr.n_pages, tenant=tr.page * 0)
+    with pytest.raises(NotImplementedError, match="TenantMux"):
+        R.run_ours(tagged, SMOKE, TrainConfig(epochs=0), device="cpu")
