@@ -12,7 +12,9 @@ Phases, in order; any failure exits non-zero:
               print the build time and the ``-Xptxas -v`` summary.
 3. kernels  — hold every kernel against its plain PyTorch version on the
               card at the main path's shapes (integer kernels bit-exact,
-              attention within rtol 1e-5 / atol 1e-6), and time kernel,
+              float32 attention within rtol 1e-5 / atol 1e-6, bf16
+              attention within one bf16 ulp plus ``DECODE_ATOL`` or
+              ``FLASH_ATOL``), and time kernel,
               plain version and (for attention) ``scaled_dot_product_
               attention`` with CUDA events.
 4. main     — the paper's online loop, ``repro_torch.uvm.runtime.run_ours``,
@@ -27,12 +29,31 @@ Phases, in order; any failure exits non-zero:
               prints host seconds per stage (observe, run_segment,
               apply_prefetch); a second run under ``torch.profiler`` prints
               the device busy share and each kernel's device time.
+5. serve    — the LM serving path, ``repro_torch.serving.engine.Engine``
+              (what ``python -m repro_torch.launch.serve`` drives), on
+              qwen2-0.5b at full width (24 layers, 494M parameters, bf16)
+              with the weights ``numpy_params(lm specs, seed 0)``, batch 2,
+              a 1792-token prompt, 256 new tokens, ``pad_to=2048`` and the
+              ``learned`` KV offload at ``hbm_fraction=0.5``, against the
+              JAX package's run of the same (``experiments/torch/
+              serve_qwen2_ref.npz``): teacher-forced logits at the
+              reference's top-8 ids within ``SERVE_ATOL`` and page masses
+              within ``MASS_RTOL``; the reference's page-mass stream replayed
+              through the port's ``learned`` and ``lru`` managers with equal
+              stats; a free run whose tokens equal the reference's up to a
+              fork to another of the reference's top-8 ids whose logit there
+              is within 2 * ``SERVE_ATOL`` of its top-1 and whose page
+              masses before the first fork are within ``MASS_RTOL``, with
+              ``flash_attention_bf16`` launched once
+              per layer, ``decode_attention`` once per layer and step and
+              ``freq_update`` once per step; and a profiled second free run.
 
 The last lines are the card's ``nvidia-smi`` line, a ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -43,10 +64,31 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 REF = ROOT / "experiments" / "torch" / "hotspot_paper_ref.json"
 WEIGHTS = ROOT / "experiments" / "torch" / "pretrain_paper.npz"
+SERVE_REF = ROOT / "experiments" / "torch" / "serve_qwen2_ref.npz"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM, bf16 dense tensor cores
 FA_RTOL, FA_ATOL = 1e-5, 1e-6
+# bf16 decode against its plain version: the same rounding points, float32
+# sums in another order, which can flip the bf16 output by one ulp (at most
+# 2^-7 of it).  The serve shape's outputs are about 0.03 (N(0,1) inputs,
+# std sqrt(e / kv_len)); one dropped key at kv_len 513 moves them by ~2e-3.
+DECODE_RTOL, DECODE_ATOL = 2.0 ** -7, 1e-5
+# bf16 flash against its plain version: a one-ulp flip of the output, and
+# p rounded against other running maxima (per key in the kernel, per chunk
+# in the plain version), each p off by up to 2^-9 of itself on either side;
+# that moves the short causal rows (few keys, outputs of about +-3) most.
+# An H100 needed atol 0.0027 at rtol 2^-7 on these inputs and the GPU
+# tests'; a wrong causal offset is off by about 3.7
+FLASH_RTOL, FLASH_ATOL = 2.0 ** -7, 4e-3
+# serve path against the JAX package on a CPU: logits of about +-3 after 24
+# bf16 layers whose elementwise chains round at other places in XLA (float32
+# intermediates, its own sigmoid) than in PyTorch; 8 bf16 ulps at 2-4
+SERVE_ATOL = 0.125
+# page mass is a mean of |K| over 24 layers x 2 rows x 2 heads x 64 dims x
+# 64 tokens; single-ulp differences in bf16 keys move it by well under 1%
+MASS_RTOL = 1e-2
 
 
 class SmokeFailure(Exception):
@@ -84,10 +126,10 @@ def time_cuda(fn, iters: int, warmup: int = 10) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, kernel_symbol: str, iters: int = 50) -> float | None:
-    """Mean device time (ms) of the CUDA kernel whose name contains
-    ``kernel_symbol``, from ``torch.profiler``; None if the profiler shows
-    no device time for it."""
+def device_ms(fn, kernel: str, iters: int = 50) -> float | None:
+    """Mean device time (ms) of the port kernel ``kernel`` (its device
+    symbol matched by ``is_kernel``), from ``torch.profiler``; None if the
+    profiler shows no device time for it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -102,7 +144,7 @@ def device_ms(fn, kernel_symbol: str, iters: int = 50) -> float | None:
         return None
     total, count = 0.0, 0
     for ev in prof.key_averages():
-        if kernel_symbol in ev.key:
+        if is_kernel(kernel, ev.key):
             t = getattr(ev, "device_time_total", None)
             if t is None:
                 t = getattr(ev, "cuda_time_total", 0.0)
@@ -112,6 +154,13 @@ def device_ms(fn, kernel_symbol: str, iters: int = 50) -> float | None:
 
 
 # --- phase 3: each kernel against its plain version --------------------------
+
+
+def bf16_err(got, want, rtol: float) -> tuple[float, float]:
+    """The largest |got - want| and the smallest atol that would pass at
+    ``rtol`` (the largest |got - want| - rtol * |want|)."""
+    err = (got.float() - want.float()).abs()
+    return float(err.max()), float((err - rtol * want.float().abs()).max())
 
 
 def kernel_evict_select(dev) -> dict:
@@ -153,7 +202,7 @@ def kernel_evict_select(dev) -> dict:
             "replaces": "src/repro/kernels/evict_select/kernel.py:56", "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None,
-            "device_ms": device_ms(lambda: K.evict_select(cand, keys, ne), KERNEL_SYMBOLS["evict_select"]),
+            "device_ms": device_ms(lambda: K.evict_select(cand, keys, ne), "evict_select"),
             "shape": f"NB {nb}, 3 keys, n_evict 1"}
 
 
@@ -228,7 +277,7 @@ def kernel_freq_table(dev) -> list[dict]:
            "plain_ms": time_cuda(lambda: K.freq_update_plain(t0, c0, hot), 20, warmup=3),
            "bound_ms": update_bytes / HBM_BYTES_PER_S * 1e3,
            "bound_by": "bytes", "library_ms": None,
-           "device_ms": device_ms(lambda: K.freq_update(tags, cnt, hot), KERNEL_SYMBOLS["freq_update"]),
+           "device_ms": device_ms(lambda: K.freq_update(tags, cnt, hot), "freq_update"),
            "skewed_ms": time_cuda(lambda: upd(skewed), 200) - copy_ms,
            "shape": f"{n_sets}x{ways} table, {n} blocks of one Hotspot group"}
     q = hot
@@ -237,7 +286,7 @@ def kernel_freq_table(dev) -> list[dict]:
           "ms": time_cuda(lambda: K.freq_lookup(tags, cnt, q), 500),
           "plain_ms": time_cuda(lambda: K.freq_lookup_plain(tags, cnt, q), 200),
           "bound_ms": lookup_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
-          "device_ms": device_ms(lambda: K.freq_lookup(tags, cnt, q), KERNEL_SYMBOLS["freq_lookup"]),
+          "device_ms": device_ms(lambda: K.freq_lookup(tags, cnt, q), "freq_lookup"),
           "shape": f"{n_sets}x{ways} table, {n} blocks of one Hotspot group"}
     return [upd, lk]
 
@@ -287,8 +336,133 @@ def kernel_flash_attention(dev) -> dict:
             "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS else "operations",
             "library_ms": time_cuda(sdpa, 500),
-            "device_ms": device_ms(lambda: K.flash_attention(q, k, v), KERNEL_SYMBOLS["flash_attention"]),
+            "device_ms": device_ms(lambda: K.flash_attention(q, k, v), "flash_attention"),
             "shape": f"B {B}, S=T {S}, K {Kh}, G {G}, D {D}, float32"}
+
+
+def _sdpa_layout(q, k, v):
+    """(B, S, K, G, D) q and (B, T, K, D) k, v in SDPA's (B, heads, len, D)
+    layout; query head k * G + g reads kv head k (``enable_gqa``)."""
+    B, S, K, G, D = q.shape
+    return (q.reshape(B, S, K * G, D).transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous())
+
+
+def kernel_flash_attention_bf16(dev) -> dict:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as K
+
+    rng = np.random.default_rng(5)
+
+    def inputs(B, S, T, Kh, G, D):
+        mk = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32), device=dev).bfloat16()
+        return mk(B, S, Kh, G, D), mk(B, T, Kh, D), mk(B, T, Kh, D)
+
+    worst = need = 0.0
+    cases = [((2, 1792, 1792, 2, 7, 64), {}), ((2, 100, 130, 2, 7, 64), {"q_offset": 30}),
+             ((1, 33, 33, 1, 4, 32), {"kv_len": 20, "causal": False})]
+    for shape, kw in cases:
+        q, k, v = inputs(*shape)
+        got = K.flash_attention(q, k, v, **kw)
+        want = K.attend_chunked(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.bfloat16 and bool(torch.isfinite(got.float()).all()),
+              f"flash_attention (bf16) gave a non-bf16 or non-finite result at {shape} {kw}")
+        err, n = bf16_err(got, want, FLASH_RTOL)
+        check(torch.allclose(got.float(), want.float(), rtol=FLASH_RTOL, atol=FLASH_ATOL),
+              f"flash_attention (bf16) differs from plain at {shape} {kw}: max |err| {err}, atol needed {n}")
+        worst, need = max(worst, err), max(need, n)
+    # the limits reject a causal mask one key off (each row one key short)
+    q, k, v = inputs(2, 100, 130, 2, 7, 64)
+    off = K.flash_attention(q, k, v, q_offset=30).float()
+    want = K.attend_chunked(q, k, v, q_offset=31).float()
+    check(not torch.allclose(off, want, rtol=FLASH_RTOL, atol=FLASH_ATOL), "the bf16 limits pass a key dropped per row")
+    print(f"  flash_attention bf16: {len(cases)} shapes (the serve prefill's B2 S=T=1792 K2 G7 D64 first), "
+          f"rtol 2^-7 atol {FLASH_ATOL}: max |err| {worst:.3g}, atol needed at rtol 2^-7 {need:.3g}; one key "
+          f"dropped per row: max |err| {float((off - want).abs().max()):.3g}, rejected")
+    B, S, T, Kh, G, D = 2, 1792, 1792, 2, 7, 64
+    q, k, v = inputs(B, S, T, Kh, G, D)
+    qh, kh, vh = _sdpa_layout(q, k, v)
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, enable_gqa=True)
+    sd = sdpa().transpose(1, 2).reshape(B, S, Kh, G, D)
+    check(torch.allclose(sd.float(), K.attend_chunked(q, k, v).float(), rtol=2e-2, atol=2e-2),
+          "the SDPA yardstick computes another function")
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 2 * 2 * B * Kh * G * (S * (S + 1) // 2) * D  # causal pairs, QK and PV
+    return {"name": "flash_attention_bf16", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:71", "max_abs_err": worst,
+            "ms": time_cuda(lambda: K.flash_attention(q, k, v), 20, warmup=3),
+            "plain_ms": time_cuda(lambda: K.attend_chunked(q, k, v), 10, warmup=2),
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
+            "library_ms": time_cuda(sdpa, 50),
+            "device_ms": device_ms(lambda: K.flash_attention(q, k, v), "flash_attention_bf16", iters=10),
+            "shape": f"B {B}, S=T {S}, K {Kh}, G {G}, D {D}, bf16, causal"}
+
+
+def kernel_decode_attention(dev) -> dict:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as K
+
+    rng = np.random.default_rng(6)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def inputs(dtype, B, Kh, G, D, T):
+        mk = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32), device=dev).to(dtypes[dtype])
+        return mk(B, Kh, G, D), mk(B, T, Kh, D), mk(B, T, Kh, D)
+
+    cases = [("bfloat16", (2, 2, 7, 64, 2048), n) for n in (1, 511, 512, 513, 1800, 2048)]
+    cases += [(dt, shape, n) for dt in dtypes for shape, n in (((1, 2, 1, 128, 520), 520), ((2, 2, 4, 32, 64), 40))]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    need = 0.0
+    for dtype, shape, kv_len in cases:
+        q, k, v = inputs(dtype, *shape)
+        got = K.decode_attention_kernelcall(q, k, v, kv_len)
+        want = K.decode_attention_plain(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        rtol, atol = (FA_RTOL, FA_ATOL) if dtype == "float32" else (DECODE_RTOL, DECODE_ATOL)
+        err, n = bf16_err(got, want, DECODE_RTOL)
+        check(got.dtype == q.dtype and torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol),
+              f"decode_attention ({dtype}) differs from plain at {shape} kv_len {kv_len}: max |err| {err}")
+        worst[dtype] = max(worst[dtype], err)
+        if dtype == "bfloat16":
+            need = max(need, n)
+    # the limits reject one dropped key: the kernel told kv_len 512 where the plain version has 513
+    q, k, v = inputs("bfloat16", 2, 2, 7, 64, 2048)
+    off = K.decode_attention_kernelcall(q, k, v, 512).float()
+    want = K.decode_attention_plain(q, k, v, 513).float()
+    check(not torch.allclose(off, want, rtol=DECODE_RTOL, atol=DECODE_ATOL), "the bf16 limits pass a dropped key")
+    print(f"  decode_attention: {len(cases)} cases (bf16 B2 K2 G7 D64 T2048 at kv_len 1..2048; float32 and "
+          f"bf16 at G1 D128 T520 and G4 D32 T64): max |err| float32 {worst['float32']:.3g} "
+          f"(rtol {FA_RTOL} atol {FA_ATOL}), bf16 {worst['bfloat16']:.3g} (rtol 2^-7 atol {DECODE_ATOL}; atol "
+          f"needed at rtol 2^-7 {need:.3g}); key 513 dropped: max |err| {float((off - want).abs().max()):.3g}, "
+          f"rejected")
+    # timing at the serve path's shape and its longest cache
+    B, Kh, G, D, T = 2, 2, 7, 64, 2048
+    kv_len = T
+    q, k, v = inputs("bfloat16", B, Kh, G, D, T)
+    qh, kh, vh = _sdpa_layout(q[:, None], k[:, :kv_len], v[:, :kv_len])
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True)
+    sd = sdpa().transpose(1, 2).reshape(B, Kh, G, D)
+    check(torch.allclose(sd.float(), K.decode_attention_plain(q, k, v, kv_len).float(), rtol=2e-2,
+                         atol=2e-2), "the SDPA yardstick computes another function")
+    nbytes = 2 * (2 * q.numel() + 2 * B * kv_len * Kh * D)
+    flops = 2 * 2 * B * Kh * G * kv_len * D
+    return {"name": "decode_attention", "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:59", "max_abs_err": max(worst.values()),
+            "ms": time_cuda(lambda: K.decode_attention_kernelcall(q, k, v, kv_len), 500),
+            "plain_ms": time_cuda(lambda: K.decode_attention_plain(q, k, v, kv_len), 100),
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
+            "library_ms": time_cuda(sdpa, 500),
+            "device_ms": device_ms(lambda: K.decode_attention_kernelcall(q, k, v, kv_len), "decode_attention"),
+            "shape": f"B {B}, K {Kh}, G {G}, D {D}, T {T}, kv_len {kv_len}, bf16"}
 
 
 # --- phase 4: the main path ------------------------------------------------------
@@ -355,21 +529,33 @@ def main_path(dev) -> tuple[dict, dict]:
         check(launches[name] > 0, f"the main path never launched {name}")
     print(f"  main path: stats, top-1 ({res.top1}) and prediction count equal the JAX reference; "
           f"wall {wall:.3f} s")
-    profile_main_path(lambda: R.run_ours(trace, CONFIG, tcfg, oversubscription=1.5,
-                                         table=R.load_pretrained(WEIGHTS, CONFIG, dev), device=dev),
-                      full["stats"])
+    res = profile_run("main path", lambda: R.run_ours(trace, CONFIG, tcfg, oversubscription=1.5,
+                                                       table=R.load_pretrained(WEIGHTS, CONFIG, dev), device=dev))
+    check(res.stats == full["stats"], "the profiled main-path run gave other stats")
     return out, launches
 
 
 KERNEL_SYMBOLS = {"evict_select": "evict_select_kernel", "freq_update": "freq_update_kernel",
-                  "freq_lookup": "freq_lookup_kernel", "flash_attention": "fa_fwd_kernel"}
+                  "freq_lookup": "freq_lookup_kernel", "flash_attention": "fa_fwd_kernel",
+                  "flash_attention_bf16": "fa_fwd_kernel", "decode_attention": "decode_attention_kernel"}
 
 
-def profile_main_path(run, want_stats) -> None:
-    """Run the main path once more under ``torch.profiler`` (CUDA activity)
-    and print where the device time goes: the summed time of every kernel
-    (one stream, so kernels do not overlap), its share of the run's wall time,
-    each port kernel's device time and count, and the top kernels by time."""
+def is_kernel(name: str, symbol: str) -> bool:
+    """Whether a profiler key is the device symbol of port kernel ``name``
+    (flash attention's two instantiations differ by their element type)."""
+    if KERNEL_SYMBOLS[name] not in symbol:
+        return False
+    if name.startswith("flash_attention"):
+        return ("bfloat16" in symbol) == name.endswith("bf16")
+    return True
+
+
+def profile_run(label: str, run):
+    """Run a path once more under ``torch.profiler`` (CUDA activity), print
+    where the device time goes (the summed time of every kernel, one stream,
+    so kernels do not overlap; its share of the run's wall time; each port
+    kernel's device time and count; the top kernels by time) and return the
+    run's result."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -379,7 +565,6 @@ def profile_main_path(run, want_stats) -> None:
         res = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    check(res.stats == want_stats, "the profiled main-path run gave other stats")
     by_name = {}
     for ev in prof.key_averages():
         t = getattr(ev, "device_time_total", None)
@@ -388,14 +573,172 @@ def profile_main_path(run, want_stats) -> None:
         if t and ev.count:
             by_name[ev.key] = (t / 1e6, ev.count)
     busy = sum(t for t, _ in by_name.values())
-    port = {name: {"device_s": sum(t for k, (t, _) in by_name.items() if sym in k),
-                   "count": sum(c for k, (_, c) in by_name.items() if sym in k)}
-            for name, sym in KERNEL_SYMBOLS.items()}
+    port = {name: {"device_s": sum(t for k, (t, _) in by_name.items() if is_kernel(name, k)),
+                   "count": sum(c for k, (_, c) in by_name.items() if is_kernel(name, k))}
+            for name in KERNEL_SYMBOLS}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    print("  main path profile: " + json.dumps({
+    print(f"  {label} profile: " + json.dumps({
         "wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall if busy else None,
         "port_kernels": port,
         "top_kernels": [{"name": k[:100], "device_s": t, "count": c} for k, (t, c) in top]}))
+    return res
+
+
+# --- phase 5: the serving path ---------------------------------------------------
+
+
+def serve_path(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.params import numpy_params
+    from repro_torch.serving.engine import OFFLOAD_KINDS, Engine
+
+    with np.load(SERVE_REF) as z:
+        ref = {k: z[k] for k in z.files}
+    run = json.loads(str(ref["run"]))
+    cfg = get_config(run["arch"])
+    S, n_new, pad_to = run["prompt_len"], run["n_new"], run["pad_to"]
+    prompt = np.random.default_rng(run["prompt_seed"]).integers(0, cfg.vocab_size, (run["batch"], S))
+    check(np.array_equal(prompt, ref["prompt"]), "the reference's prompt is not default_rng(1)'s")
+    t0 = time.perf_counter()
+    weights = numpy_params(lm.param_specs(cfg), run["seed"])
+    eng = Engine(cfg, {k: torch.from_numpy(v) for k, v in weights.items()}, offload=run["offload"],
+                 hbm_fraction=run["hbm_fraction"], device=dev)
+    del weights
+    torch.cuda.synchronize()
+    print(f"  engine: {cfg.name}, {lm.param_count(cfg):,} parameters, {cfg.dtype}, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    mgr = eng.make_manager(pad_to)
+    n_pages, cap = mgr.n_pages, mgr.capacity
+    check((n_pages, cap) == (int(ref["n_pages"]), int(ref["capacity"])), "the KV page pool differs from the reference's")
+
+    # 1. teacher-forced: prefill + n_new decode steps fed the reference's tokens
+    tokens = torch.tensor(prompt, device=dev)
+    ref_tok = ref["tokens"]
+    errs, mass_err, top1_checked = [], 0.0, 0
+
+    def compare(step, logits):
+        nonlocal top1_checked
+        lg = logits[:, -1].float()
+        ids = torch.tensor(ref["top_ids"][step], device=dev, dtype=torch.long)
+        err = float((lg.gather(1, ids) - torch.tensor(ref["top_logits"][step], device=dev)).abs().max())
+        errs.append(err)
+        check(err <= SERVE_ATOL, f"teacher-forced step {step}: logits differ from the reference by {err} > {SERVE_ATOL}")
+        top1 = lg.argmax(-1).cpu().numpy()
+        sure = ref["margin"][step] > 2 * SERVE_ATOL
+        check(np.array_equal(top1[sure], ref["top_ids"][step][sure, 0]),
+              f"teacher-forced step {step}: top-1 differs where the reference's margin exceeds {2 * SERVE_ATOL}")
+        top1_checked += int(sure.sum())
+
+    with torch.no_grad():
+        logits, cache = eng.prefill(eng.params, {"tokens": tokens})
+        cache = eng._grow_cache(cache, pad_to)
+        compare(0, logits)
+        for i in range(n_new):
+            logits, cache = eng.decode(eng.params, {"token": torch.tensor(ref_tok[:, i], device=dev), "pos": S + i},
+                                       cache)
+            compare(i + 1, logits)
+            mass, _ = eng.page_mass(cache, S + i, n_pages)
+            want = ref["page_mass"][i]
+            rel = np.abs(mass - want) / np.maximum(np.abs(want), 1e-30)
+            mass_err = max(mass_err, float(rel[want > 0].max()))
+            check(bool(np.all(np.abs(mass - want) <= MASS_RTOL * np.abs(want))),
+                  f"step {i}: page mass differs from the reference's by rtol {mass_err} > {MASS_RTOL}")
+    del cache, logits
+    print(f"  teacher-forced: {n_new + 1} steps, logits at the reference's top-8 ids within {max(errs):.4g} "
+          f"(atol {SERVE_ATOL}; mean of per-step max {np.mean(errs):.4g}); top-1 equal at {top1_checked} of "
+          f"{(n_new + 1) * len(prompt)} (row, step)s whose margin exceeds {2 * SERVE_ATOL}; page mass within rtol "
+          f"{mass_err:.3g} ({MASS_RTOL})")
+
+    # 2. the reference's mass stream replayed through the port's managers
+    replay = {}
+    for kind in ("learned", "lru"):
+        m = OFFLOAD_KINDS[kind](n_pages, cap, device=dev)
+        for mass, touched in zip(ref["page_mass"], ref["touched"]):
+            m.on_attention(mass, np.nonzero(touched)[0])
+        got = dataclasses.asdict(m.stats)
+        want = dict(zip(ref["stat_keys"].tolist(), ref[f"{kind}_stats"].tolist()))
+        check(got == want, f"replayed {kind} stats {got} != JAX reference {want}")
+        replay[kind] = got
+    print(f"  replay: offload stats equal the JAX reference's exactly: {json.dumps(replay)}")
+
+    # 3. the free run, as launch/serve drives it; launch counts from here only
+    spent = {"prefill": 0.0, "decode": 0.0, "offload": 0.0}
+    originals = {"prefill": eng.prefill, "decode": eng.decode, "offload": eng._drive_offload}
+    free_mass = []  # the page masses the free run hands its manager, one per step
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t
+            return out
+        return wrapper
+
+    def recorded(cache, pos, n):
+        mass, touched = Engine.page_mass(cache, pos, n)
+        free_mass.append(mass)
+        return mass, touched
+
+    eng.prefill, eng.decode, eng._drive_offload = (timed(k, f) for k, f in originals.items())
+    eng.page_mass = recorded
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            res = eng.generate({"tokens": prompt}, n_new, pad_to=pad_to)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        eng.prefill, eng.decode, eng._drive_offload = originals.values()
+        del eng.page_mass
+    # where a row's tokens first differ from the reference's, the port chose
+    # another of the reference's top-8 ids: with every logit within
+    # SERVE_ATOL of the reference's, that id can outrank the reference's
+    # top-1 only if the reference has it at most 2 * SERVE_ATOL below
+    forks = []
+    for row in range(len(prompt)):
+        diff = np.nonzero(res.tokens[row] != ref_tok[row])[0]
+        if diff.size == 0:
+            continue
+        step, tok = int(diff[0]), int(res.tokens[row, diff[0]])
+        ids, lg = ref["top_ids"][step, row], ref["top_logits"][step, row]
+        gap = float(lg[0] - lg[ids == tok][0]) if (ids == tok).any() else math.inf
+        forks.append({"row": row, "step": step, "token": tok, "ref_token": int(ref_tok[row, step]), "ref_gap": gap})
+    # until the first fork the free run feeds its manager the reference's
+    # tokens, so its page masses are held to the reference's as above
+    n_same = min([f["step"] for f in forks], default=n_new)
+    check(len(free_mass) == n_new, f"the free run computed {len(free_mass)} page masses, not {n_new}")
+    want = ref["page_mass"][:n_same]
+    free_err = max([float((np.abs(m - w) / np.maximum(np.abs(w), 1e-30))[w > 0].max())
+                    for m, w in zip(free_mass, want)], default=0.0)
+    out = {"prefill_s": spent["prefill"], "decode_ms_per_step": spent["decode"] / n_new * 1e3,
+           "offload_ms_per_step": spent["offload"] / n_new * 1e3, "wall_s": wall,
+           "tokens_per_s": res.tokens.size / wall, "offload_stats": res.offload_stats,
+           "forks": forks, "mass_steps_checked": n_same, "mass_rtol": free_err, "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("  free run: " + json.dumps(out))
+    for f in forks:
+        check(f["ref_gap"] <= 2 * SERVE_ATOL, f"row {f['row']}: tokens fork from the reference at step {f['step']} "
+              f"to {f['token']}, {f['ref_gap']} below the reference's top-1 there (more than {2 * SERVE_ATOL})")
+    check(free_err <= MASS_RTOL, f"the free run's page mass before its first fork differs from the reference's "
+          f"by rtol {free_err} > {MASS_RTOL}")
+    L = cfg.num_layers
+    want = {"flash_attention_bf16": L, "decode_attention": L * n_new, "freq_update": n_new}
+    for name, n in want.items():
+        check(launches[name] == n, f"the serve path launched {name} {launches[name]} times, not {n}")
+    check(all(launches[k] == 0 for k in launches if k not in want), f"the serve path launched other kernels: {launches}")
+    # 4. where the device time goes
+    res2 = profile_run("serve", lambda: eng.generate({"tokens": prompt}, n_new, pad_to=pad_to))
+    check(np.array_equal(res2.tokens, res.tokens), "the profiled serve run gave other tokens")
+    return launches
 
 
 def main() -> int:
@@ -417,28 +760,33 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
         smi = nvidia_smi_line()
-        print(f"[1/4] device: {name} (count {count}); nvidia-smi: {smi}")
+        print(f"[1/5] device: {name} (count {count}); nvidia-smi: {smi}")
         print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
         t0 = time.perf_counter()
         LIBRARY.cdll()
         how = "built" if LIBRARY.build_seconds is not None else "loaded the existing build"
-        print(f"[2/4] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
+        print(f"[2/5] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
         for line in LIBRARY.ptxas_log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line or line.startswith("=="):
                 print("      " + line.strip())
 
-        print("[3/4] kernels against their plain versions on the card")
-        rows = [kernel_evict_select(dev), *kernel_freq_table(dev), kernel_flash_attention(dev)]
+        print("[3/5] kernels against their plain versions on the card")
+        rows = [kernel_evict_select(dev), *kernel_freq_table(dev), kernel_flash_attention(dev),
+                kernel_flash_attention_bf16(dev), kernel_decode_attention(dev)]
         for r in rows:
             print(f"  {r['name']:16s} {r['shape']}: kernel {r['ms']:.4f} ms/call (device {r['device_ms']}), "
                   f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, bound {r['bound_ms']:.6f} ms")
 
-        print("[4/4] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card")
-        _, launches = main_path(dev)
+        print("[4/5] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card")
+        _, run_ours_launches = main_path(dev)
+        print("[5/5] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card")
+        serve_launches = serve_path(dev)
         for r in rows:
-            r["launches"] = launches[r["name"]]
-        check(set(launches) == {r["name"] for r in rows}, "a kernel has no row")
+            by_path = {"run_ours": run_ours_launches[r["name"]], "serve": serve_launches[r["name"]]}
+            r["launches"] = sum(by_path.values())
+            r["launches_by_path"] = by_path
+        check(set(run_ours_launches) == {r["name"] for r in rows}, "a kernel has no row")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

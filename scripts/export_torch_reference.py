@@ -21,6 +21,21 @@ none, so this script carries both across as plain files:
 
 Pretraining takes about a minute on a CPU.  ``--cache-dir`` memoises it in
 DIR (default: no memo, nothing is written outside ``experiments/torch``).
+
+    PYTHONPATH=src python scripts/export_torch_reference.py --serve
+
+writes ``experiments/torch/serve_qwen2_ref.npz`` instead: the JAX serving
+engine (its default XLA path) on ``qwen2-0.5b`` at full width, with the
+weights of ``repro_torch.models.params.numpy_params`` (seed 0) and the
+prompt ``default_rng(1).integers(0, 151936, (2, 1792))``:
+``Engine(offload="learned", hbm_fraction=0.5).generate(n_new=256,
+pad_to=2048)`` (32 KV pages of 64 tokens, 16 resident).  It records the
+prompt, the generated tokens, the top-8 ids and logits of every step
+(prefill first) per row with the top-1/top-2 margin, each step's page mass
+and touched pages as handed to the offload manager, the ``learned``
+manager's final stats, and the stats of the JAX ``LRUOffloadManager`` fed
+the same stream (the tokens do not depend on the offload kind).  It takes
+about 4.5 minutes and 14 GB on a CPU.
 """
 from __future__ import annotations
 
@@ -70,10 +85,111 @@ def _frozen_run(trace, table, oversub: float) -> dict:
     }
 
 
+SERVE = {"arch": "qwen2-0.5b", "seed": 0, "prompt_seed": 1, "batch": 2, "prompt_len": 1792, "n_new": 256,
+         "pad_to": 2048, "offload": "learned", "hbm_fraction": 0.5}
+TOPK = 8
+
+
+def _topk(logits) -> tuple:
+    """Top-8 ids (ties: lowest id first, as argmax) and values of the last
+    position's logits, and the top-1/top-2 margin, per row."""
+    import numpy as np
+
+    x = np.asarray(logits[:, -1], np.float32)
+    ids = np.argsort(-x, axis=-1, kind="stable")[:, :TOPK]
+    vals = np.take_along_axis(x, ids, axis=-1)
+    return ids.astype(np.int32), vals, vals[:, 0] - vals[:, 1]
+
+
+def serve_reference(cfg, *, seed, prompt_seed, batch, prompt_len, n_new, pad_to, offload, hbm_fraction) -> dict:
+    """One JAX engine run with every step recorded (see the module docstring)."""
+    import dataclasses
+    import time
+
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.models import lm
+    from repro.serving.engine import Engine
+    from repro.serving.offload import LRUOffloadManager
+    from repro_torch.models.params import numpy_params
+
+    t0 = time.perf_counter()
+    params = {k: jnp.asarray(v) for k, v in numpy_params(lm.param_specs(cfg), seed).items()}
+    prompt = np.random.default_rng(prompt_seed).integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
+    eng = Engine(cfg, params, offload=offload, hbm_fraction=hbm_fraction)
+    steps, masses, touched, mgrs = [], [], [], []
+    prefill, decode, drive = eng.prefill, eng.decode, eng._drive_offload
+
+    def rec_prefill(p, b):
+        logits, cache = prefill(p, b)
+        steps.append(_topk(logits))
+        return logits, cache
+
+    def rec_decode(p, b, cache):
+        logits, cache = decode(p, b, cache)
+        steps.append(_topk(logits))
+        return logits, cache
+
+    def rec_drive(mgr, cache, pos):
+        if not mgrs:
+            on_attention = mgr.on_attention
+
+            def rec_on_attention(mass, tch):
+                masses.append(np.array(mass, np.float64))
+                touched.append(np.array(tch, np.int64))
+                return on_attention(mass, tch)
+
+            mgr.on_attention = rec_on_attention
+            mgrs.append(mgr)
+        return drive(mgr, cache, pos)
+
+    eng.prefill, eng.decode, eng._drive_offload = rec_prefill, rec_decode, rec_drive
+    res = eng.generate({"tokens": jnp.asarray(prompt)}, n_new=n_new, pad_to=pad_to)
+    seconds = time.perf_counter() - t0
+    n_pages = mgrs[0].n_pages
+    lru = LRUOffloadManager(n_pages, mgrs[0].capacity)
+    mask = np.zeros((len(masses), n_pages), bool)
+    for i, (m, t) in enumerate(zip(masses, touched)):
+        lru.on_attention(m, t)
+        mask[i, t] = True
+    stat_keys = list(dataclasses.asdict(lru.stats))
+    return {
+        "prompt": prompt, "tokens": np.asarray(res.tokens, np.int32),
+        "top_ids": np.stack([s[0] for s in steps]), "top_logits": np.stack([s[1] for s in steps]),
+        "margin": np.stack([s[2] for s in steps]),
+        "page_mass": np.stack(masses), "touched": mask,
+        "stat_keys": np.array(stat_keys),
+        "learned_stats": np.array([res.offload_stats[k] for k in stat_keys], np.int64),
+        "lru_stats": np.array([dataclasses.asdict(lru.stats)[k] for k in stat_keys], np.int64),
+        "n_pages": np.int64(n_pages), "capacity": np.int64(mgrs[0].capacity),
+        "seconds": np.float64(seconds),
+    }
+
+
+def export_serve() -> None:
+    import json
+
+    import numpy as np
+
+    from repro.configs import get_config
+
+    ref = serve_reference(get_config(SERVE["arch"]), **{k: v for k, v in SERVE.items() if k != "arch"})
+    OUT.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(OUT / "serve_qwen2_ref.npz", run=np.array(json.dumps(SERVE)), **ref)
+    print(json.dumps({"learned": dict(zip(ref["stat_keys"].tolist(), ref["learned_stats"].tolist())),
+                      "lru": dict(zip(ref["stat_keys"].tolist(), ref["lru_stats"].tolist())),
+                      "first_tokens": ref["tokens"][:, :8].tolist(), "seconds": float(ref["seconds"])}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cache-dir", default=None, help="memoise the pretraining in this directory")
+    ap.add_argument("--serve", action="store_true", help="write serve_qwen2_ref.npz (and nothing else)")
     args = ap.parse_args()
+    if args.serve:
+        export_serve()
+        return
     if args.cache_dir is None:
         os.environ["REPRO_PRETRAIN_CACHE"] = "0"
 

@@ -21,17 +21,21 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("evict_select.cu", "freq_table.cu", "flash_attention.cu")
+SOURCES = ("evict_select.cu", "freq_table.cu", "flash_attention.cu", "decode_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "repro_evict_select": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
     "repro_freq_update": (_P, _P, _P, _I, _I, _P),
     "repro_freq_lookup": (_P, _P, _P, _P, _I, _I, _P),
-    "repro_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P),
+    "repro_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "repro_flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "repro_decode_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    "repro_decode_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 

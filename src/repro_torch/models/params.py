@@ -4,6 +4,8 @@ Parameters are a flat ``dict[str, Tensor]`` under the JAX package's key
 names (``"reg/attn/wq"``, ``"embed/page"``, ...), so weights carry across
 by name with no renaming.  :func:`init_params` draws from a
 ``torch.Generator``; its numbers differ from ``jax.random``'s.
+:func:`numpy_params` draws from ``np.random.default_rng`` instead, so the
+JAX package and the port can be handed the same numbers.
 """
 from __future__ import annotations
 
@@ -40,16 +42,20 @@ def _fan_in(spec: Spec) -> int:
     return max(dims[0] if dims else 1, 1)
 
 
+def _std(spec: Spec) -> float:
+    """Standard deviation of a ``normal`` or ``lecun`` initialiser."""
+    if spec.init not in ("normal", "lecun"):
+        raise ValueError(spec.init)
+    return spec.scale if spec.init == "normal" else spec.scale / math.sqrt(_fan_in(spec))
+
+
 def init_one(gen: torch.Generator, spec: Spec, dtype, device) -> torch.Tensor:
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
-    if spec.init in ("normal", "lecun"):
-        std = spec.scale if spec.init == "normal" else spec.scale / math.sqrt(_fan_in(spec))
-        x = torch.randn(spec.shape, generator=gen, dtype=torch.float32)
-        return (std * x).to(dtype=dtype, device=device)
-    raise ValueError(spec.init)
+    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32)
+    return (_std(spec) * x).to(dtype=dtype, device=device)
 
 
 def init_params(seed: int, specs: ParamSpecs, dtype=torch.float32, device="cuda") -> Params:
@@ -58,6 +64,33 @@ def init_params(seed: int, specs: ParamSpecs, dtype=torch.float32, device="cuda"
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     return {path: init_one(gen, specs[path].check(path), dtype, device) for path in sorted(specs)}
+
+
+def numpy_params(specs: ParamSpecs, seed: int) -> dict[str, np.ndarray]:
+    """Float32 numpy arrays for ``specs``, drawn from
+    ``np.random.default_rng(seed)`` in sorted key order (the same
+    initialisers as :func:`init_one`).  Feed them to either package."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for path in sorted(specs):
+        spec = specs[path].check(path)
+        if spec.init == "zeros":
+            out[path] = np.zeros(spec.shape, np.float32)
+        elif spec.init == "ones":
+            out[path] = np.ones(spec.shape, np.float32)
+        else:
+            out[path] = rng.standard_normal(spec.shape, dtype=np.float32) * np.float32(_std(spec))
+    return out
+
+
+def param_count(specs: ParamSpecs) -> int:
+    return int(sum(np.prod(s.shape) for s in specs.values()))
+
+
+def cast_tree(params: Params, dtype=torch.bfloat16) -> Params:
+    """Mixed precision: floating tensors cast to the compute dtype (a tensor
+    already of that dtype is returned as it is, uncopied)."""
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in params.items()}
 
 
 def prefix(d: ParamSpecs, pre: str) -> ParamSpecs:

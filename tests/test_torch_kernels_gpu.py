@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import evict_select as ES
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import freq_table as FT
@@ -79,6 +80,56 @@ def test_flash_attention_matches_plain(dev, shape, kw):
     torch.testing.assert_close(got, FA.attend_chunked(q, k, v, **kw), rtol=1e-5, atol=1e-6)
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# (rtol, atol) per kernel and dtype.  bf16 decode: the plain version has the
+# kernel's rounding points and differs only in the order of its float32
+# sums, which can flip the bf16 output by one ulp (at most 2^-7 of it).
+# bf16 flash: the output may also flip one ulp, and p is rounded against
+# other running maxima (per key in the kernel, per chunk in the plain
+# version), each p off by up to 2^-9 of itself on either side (an H100
+# needed atol 0.0027 at rtol 2^-7 on the 1792-token case)
+_TOL = {("flash", "float32"): (1e-5, 1e-6), ("flash", "bfloat16"): (2.0 ** -7, 4e-3),
+        ("decode", "float32"): (1e-5, 1e-6), ("decode", "bfloat16"): (2.0 ** -7, 1e-5)}
+
+
+def _mk(rng, dtype, dev):
+    return lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32), device=dev).to(_DTYPES[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,kw", [
+    ((2, 1792, 1792, 2, 7, 64), {}),
+    ((2, 100, 130, 2, 7, 64), {"q_offset": 30}),
+    ((1, 33, 33, 1, 4, 32), {"kv_len": 20}),
+])
+def test_flash_attention_bf16_and_f32_match_plain(dev, dtype, shape, kw):
+    B, S, T, K, G, D = shape
+    mk = _mk(np.random.default_rng(S + G), dtype, dev)
+    q, k, v = mk(B, S, K, G, D), mk(B, T, K, D), mk(B, T, K, D)
+    name = "flash_attention" if dtype == "float32" else "flash_attention_bf16"
+    before = kernels.LAUNCHES[name]
+    got = FA.flash_attention(q, k, v, **kw)
+    assert kernels.LAUNCHES[name] == before + 1 and got.dtype == q.dtype
+    rtol, atol = _TOL["flash", dtype]
+    torch.testing.assert_close(got.float(), FA.attend_chunked(q, k, v, **kw).float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,K,G,D,T,kv_len", [
+    (2, 2, 7, 64, 2048, 1), (2, 2, 7, 64, 2048, 511), (2, 2, 7, 64, 2048, 512),
+    (2, 2, 7, 64, 2048, 513), (2, 2, 7, 64, 2048, 1800), (2, 2, 7, 64, 2048, 2048),
+    (1, 2, 1, 128, 520, 520), (3, 1, 4, 32, 64, 40), (2, 2, 16, 64, 700, 650),
+])
+def test_decode_attention_matches_plain(dev, dtype, B, K, G, D, T, kv_len):
+    mk = _mk(np.random.default_rng(T + kv_len + G), dtype, dev)
+    q, k, v = mk(B, K, G, D), mk(B, T, K, D), mk(B, T, K, D)
+    before = kernels.LAUNCHES["decode_attention"]
+    got = DA.decode_attention_kernelcall(q, k, v, kv_len)
+    assert kernels.LAUNCHES["decode_attention"] == before + 1 and got.dtype == q.dtype
+    rtol, atol = _TOL["decode", dtype]
+    torch.testing.assert_close(got.float(), DA.decode_attention_plain(q, k, v, kv_len).float(), rtol=rtol, atol=atol)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     cand = torch.ones(8, dtype=torch.bool, device=dev)
     with pytest.raises(ValueError):
@@ -86,3 +137,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = torch.zeros(1, 4, 1, 1, 24, device=dev)
     with pytest.raises(ValueError):
         FA.flash_attention(q, torch.zeros(1, 4, 1, 24, device=dev), torch.zeros(1, 4, 1, 24, device=dev))
+    q = torch.zeros(1, 4, 1, 1, 64, device=dev)
+    with pytest.raises(ValueError):  # mixed dtypes
+        FA.flash_attention(q, torch.zeros(1, 4, 1, 64, device=dev, dtype=torch.bfloat16),
+                           torch.zeros(1, 4, 1, 64, device=dev, dtype=torch.bfloat16))
+    kv = torch.zeros(1, 8, 1, 64, device=dev)
+    with pytest.raises(ValueError):  # more than 16 query heads per kv head
+        DA.decode_attention_kernelcall(torch.zeros(1, 1, 17, 64, device=dev), kv, kv, 8)
+    with pytest.raises(ValueError):  # k and v must be 16-byte aligned
+        kv2 = torch.zeros(8 * 64 + 1, device=dev)[1:].view(1, 8, 1, 64)
+        DA.decode_attention_kernelcall(torch.zeros(1, 1, 2, 64, device=dev), kv2, kv2, 8)
+    with pytest.raises(ValueError):  # float16 is not built
+        DA.decode_attention_kernelcall(torch.zeros(1, 1, 2, 64, device=dev, dtype=torch.float16), kv.half(),
+                                       kv.half(), 8)

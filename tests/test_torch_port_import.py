@@ -31,8 +31,24 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     out = subprocess.run([sys.executable, "-c", _CHILD], capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["modules"] >= 25
+    assert res["modules"] >= 36
     assert res["leaked"] == []
+
+
+_SERVE_CHILD = """
+import json, sys
+import repro_torch.launch.serve, repro_torch.serving.engine
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
+print(json.dumps(leaked))
+"""
+
+
+def test_serving_entry_point_imports_no_jax():
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", _SERVE_CHILD], capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_port_sources_name_no_jax_import():
@@ -74,6 +90,25 @@ def test_entry_points_default_to_the_card():
         predictor.init(0, SMOKE)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(0, predictor.param_specs(SMOKE))
+    # the serving path: the engine, its managers, the paged cache, lm.init
+    from repro_torch.configs.qwen2_0_5b import SMOKE as LM_SMOKE
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.kv_cache import PagedKV
+    from repro_torch.serving.offload import KVOffloadManager
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--smoke", "--new-tokens", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(LM_SMOKE, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init(0, LM_SMOKE)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KVOffloadManager(4, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedKV.create(1, 2, 1, 4, 1, 2)
+    assert Engine(LM_SMOKE, lm.init(0, LM_SMOKE, device="cpu"), device="cpu").device.type == "cpu"
     # the same entry points run when the caller asks for the CPU
     assert OversubscriptionManager(ManagerConfig(predictor=SMOKE), device="cpu").device.type == "cpu"
     assert S.init_state(64, "cpu").device.type == "cpu"
