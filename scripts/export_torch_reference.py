@@ -36,6 +36,28 @@ and touched pages as handed to the offload manager, the ``learned``
 manager's final stats, and the stats of the JAX ``LRUOffloadManager`` fed
 the same stream (the tokens do not depend on the offload kind).  It takes
 about 4.5 minutes and 14 GB on a CPU.
+
+    PYTHONPATH=src python scripts/export_torch_reference.py --serve-mamba2
+
+writes ``experiments/torch/serve_mamba2_ref.npz`` instead: the JAX serving
+engine on ``mamba2-370m`` at full width (48 layers, 420,136,448
+parameters, bf16), with the weights of ``numpy_params`` (seed 0) and the
+prompt ``default_rng(1).integers(0, 50280, (2, 2048))`` (8 SSD chunks of
+256): ``Engine(offload="learned", hbm_fraction=0.5).generate(n_new=128)``,
+for which neither package builds an offload manager (no KV cache).  In
+this script's process only, the engine's SSD goes through the TPU kernel
+in interpret mode (``ssd_pallas(..., interpret=True)``, by reassigning
+``repro.kernels.ssd_scan.ops.ssd``): the port's kernel computes that
+function, which in bf16 differs from the default path (``ssd_ref`` rounds
+the state, its weights and ``decay*dt`` to bf16).  It records the prompt,
+the tokens, the top-8 ids and logits of every step with the top-1/top-2
+margin, the norm over (P, N) of the prefill's final SSM state per (layer,
+row, head), the offload stats (null), and the default path's prefill top-8
+ids and logits and state norms, so that the gap between the reference's
+two routes is measured.  In bf16 this random-weight model is chaotic: one
+ulp moved anywhere in a layer moves its logits by tenths, so the same run
+in float32 (``f32_*``: the prompt, then 32 new tokens) is recorded beside
+it, for a tight comparison.  It takes about 9 minutes and 4 GB on a CPU.
 """
 from __future__ import annotations
 
@@ -167,6 +189,98 @@ def serve_reference(cfg, *, seed, prompt_seed, batch, prompt_len, n_new, pad_to,
     }
 
 
+SERVE_MAMBA2 = {"arch": "mamba2-370m", "seed": 0, "prompt_seed": 1, "batch": 2, "prompt_len": 2048, "n_new": 128,
+                "offload": "learned", "hbm_fraction": 0.5, "f32_new": 32}
+
+
+def _ssd_interpret(x, dt, A_log, b, c, *, chunk, initial_state=None):
+    """The engine's SSD through the TPU kernel in interpret mode."""
+    from repro.kernels.ssd_scan import kernel
+
+    return kernel.ssd_pallas(x, dt, A_log, b, c, chunk=chunk, initial_state=initial_state, interpret=True)
+
+
+def ssm_serve_reference(cfg, *, seed, prompt_seed, batch, prompt_len, n_new, offload, hbm_fraction,
+                        default_route=True) -> dict:
+    """One JAX engine run of an ssm-family model with every step recorded,
+    its SSD through ``ssd_pallas(interpret=True)``, and (``default_route``)
+    the default path's prefill beside it (see the module docstring)."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.kernels.ssd_scan import ops
+    from repro.models import lm
+    from repro.serving.engine import Engine
+    from repro_torch.models.params import numpy_params
+
+    t0 = time.perf_counter()
+    params = {k: jnp.asarray(v) for k, v in numpy_params(lm.param_specs(cfg), seed).items()}
+    prompt = np.random.default_rng(prompt_seed).integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
+
+    def state_norms(cache):
+        return np.sqrt(np.sum(np.square(np.asarray(cache["ssm"], np.float64)), axis=(3, 4))).astype(np.float32)
+
+    default_ssd = ops.ssd
+    ops.ssd = _ssd_interpret
+    try:
+        eng = Engine(cfg, params, offload=offload, hbm_fraction=hbm_fraction)
+        steps, norms = [], []
+        prefill, decode = eng.prefill, eng.decode
+
+        def rec_prefill(p, b):
+            logits, cache = prefill(p, b)
+            steps.append(_topk(logits))
+            norms.append(state_norms(cache))
+            return logits, cache
+
+        def rec_decode(p, b, cache):
+            logits, cache = decode(p, b, cache)
+            steps.append(_topk(logits))
+            return logits, cache
+
+        eng.prefill, eng.decode = rec_prefill, rec_decode
+        res = eng.generate({"tokens": jnp.asarray(prompt)}, n_new=n_new)
+    finally:
+        ops.ssd = default_ssd
+    out = {
+        "prompt": prompt, "tokens": np.asarray(res.tokens, np.int32),
+        "top_ids": np.stack([s[0] for s in steps]), "top_logits": np.stack([s[1] for s in steps]),
+        "margin": np.stack([s[2] for s in steps]), "state_norm": norms[0],
+        "offload_stats": np.array(json.dumps(res.offload_stats)), "seconds": np.float64(time.perf_counter() - t0),
+    }
+    if default_route:
+        logits, cache = jax.jit(lm.make_prefill(cfg))(params, {"tokens": jnp.asarray(prompt)})
+        out["default_top_ids"], out["default_top_logits"], _ = _topk(logits)
+        out["default_state_norm"] = state_norms(cache)
+    return out
+
+
+def export_serve_mamba2() -> None:
+    import numpy as np
+
+    from repro.configs import get_config
+
+    cfg = get_config(SERVE_MAMBA2["arch"])
+    kw = {k: v for k, v in SERVE_MAMBA2.items() if k not in ("arch", "f32_new")}
+    ref = ssm_serve_reference(cfg, **kw)
+    f32 = ssm_serve_reference(cfg.replace(dtype="float32"), **{**kw, "n_new": SERVE_MAMBA2["f32_new"]},
+                              default_route=False)
+    ref.update({f"f32_{k}": v for k, v in f32.items() if k not in ("prompt", "offload_stats")})
+    OUT.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(OUT / "serve_mamba2_ref.npz", run=np.array(json.dumps(SERVE_MAMBA2)), **ref)
+    # the gap between the reference's two SSD routes at the prefill
+    same = ref["default_top_ids"] == ref["top_ids"][0]
+    gap = np.abs(ref["default_top_logits"] - ref["top_logits"][0])[same]
+    sgap = np.abs(ref["default_state_norm"] / ref["state_norm"] - 1)
+    print(json.dumps({"first_tokens": ref["tokens"][:, :8].tolist(), "offload": json.loads(str(ref["offload_stats"])),
+                      "routes_top8_ids_equal": bool(same.all()), "routes_max_logit_gap": float(gap.max()),
+                      "routes_max_state_norm_rel_gap": float(sgap.max()), "seconds": float(ref["seconds"]),
+                      "f32_first_tokens": ref["f32_tokens"][:, :8].tolist(), "f32_seconds": float(ref["f32_seconds"])}))
+
+
 def export_serve() -> None:
     import json
 
@@ -186,9 +300,13 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cache-dir", default=None, help="memoise the pretraining in this directory")
     ap.add_argument("--serve", action="store_true", help="write serve_qwen2_ref.npz (and nothing else)")
+    ap.add_argument("--serve-mamba2", action="store_true", help="write serve_mamba2_ref.npz (and nothing else)")
     args = ap.parse_args()
     if args.serve:
         export_serve()
+        return
+    if args.serve_mamba2:
+        export_serve_mamba2()
         return
     if args.cache_dir is None:
         os.environ["REPRO_PRETRAIN_CACHE"] = "0"

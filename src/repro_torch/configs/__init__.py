@@ -10,18 +10,20 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig  # noqa: F401
 
 _MODULES = {
     "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
     "predictor-paper": "repro_torch.configs.predictor_paper",
 }
 
-# The JAX package's other architectures (``repro.configs._MODULES``); their
-# families wait for the LM-zoo slice (ROADMAP A5).
-NOT_PORTED = ("whisper-medium", "zamba2-7b", "mamba2-370m", "olmoe-1b-7b", "qwen2-moe-a2.7b",
-              "qwen3-0.6b", "granite-3-8b", "qwen1.5-4b", "internvl2-26b")
+# The JAX package's other architectures (``repro.configs._MODULES``) and the
+# ROADMAP item that ports each: the hybrid family (zamba2) comes next after
+# training, the others with the LM zoo.
+NOT_PORTED = {"zamba2-7b": "A3", **dict.fromkeys(("whisper-medium", "olmoe-1b-7b", "qwen2-moe-a2.7b", "qwen3-0.6b",
+                                                   "granite-3-8b", "qwen1.5-4b", "internvl2-26b"), "A6")}
 
 
 def _module(name: str):
     if name in NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not ported yet (ROADMAP A5); ported: {sorted(_MODULES)}")
+        raise KeyError(f"arch {name!r} is not ported yet (ROADMAP {NOT_PORTED[name]}); ported: {sorted(_MODULES)}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; choose from {sorted(_MODULES)}")
     return importlib.import_module(_MODULES[name])

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
 Each kernel module (:mod:`.evict_select`, :mod:`.freq_table`,
-:mod:`.flash_attention`, :mod:`.decode_attention`) holds a wrapper, the
+:mod:`.flash_attention`, :mod:`.decode_attention`, :mod:`.ssd_scan`) holds a wrapper, the
 kernel's plain PyTorch version and nothing else.  A wrapper given CPU tensors computes the plain
 version; given CUDA tensors it launches the kernel (built at first use by
 :mod:`._lib` from ``src/repro_torch/csrc``) or raises.  There is no
@@ -16,7 +16,7 @@ and bf16 instantiations apart (``flash_attention``,
 from __future__ import annotations
 
 KERNEL_NAMES = ("evict_select", "freq_update", "freq_lookup", "flash_attention", "flash_attention_bf16",
-                "decode_attention")
+                "decode_attention", "ssd_scan")
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNEL_NAMES, 0)
 

@@ -11,6 +11,13 @@ numbers differ from ``jax.random``'s, so the tokens differ from the
 reference script's.  The output is the same JSON object.  ``--offload
 manager`` fine-tunes a predictor and waits for the training slice: it
 raises ``NotImplementedError``.
+
+``--arch mamba2-370m`` (the ssm family) runs too; it has no KV cache, so
+``--offload`` builds no manager and ``"offload"`` is null, as in the
+reference.  Its SSD scan takes only prompts whose length is a multiple of
+``ssm_chunk`` (256 at full width, 16 at ``--smoke``): any other length
+raises ``ValueError``, in both packages, so the default ``--prompt-len 64``
+fails at full width; pass e.g. ``--prompt-len 2048``.
 """
 from __future__ import annotations
 

@@ -2,15 +2,20 @@
 an optional KV offload manager driven by attention mass.
 
 Port of ``repro.serving.engine``.  The model runs on the engine's device
-(the card unless the caller passes ``device="cpu"``): prefill through the
-flash-attention kernel, every decode step through the decode-attention
-kernel, once per layer.  The offload manager's residency is simulated, but
-its decision stream (hits / misses / prefetches / thrash) is real and is
-what the serving benchmarks report.
+(the card unless the caller passes ``device="cpu"``).  The dense family
+prefills through the flash-attention kernel and attends in every decode
+step through the decode-attention kernel, once per layer; the ssm family
+(Mamba-2) prefills through the SSD-scan kernel, once per layer, and
+decodes its O(1) recurrence in plain PyTorch.  The offload manager's
+residency is simulated, but its decision stream (hits / misses /
+prefetches / thrash) is real and is what the serving benchmarks report.
+As in the reference, only the families with a KV cache (dense, moe, vlm,
+encdec) get an offload manager.
 
 The KV cache (L, B, T, K, HD) is allocated at its final length once and
 each decode step writes its token's K/V into it in place at ``pos`` (the
-reference returns an updated copy, ``dynamic_update_slice``).  The float32
+reference returns an updated copy, ``dynamic_update_slice``); the ssm
+family's conv tails and SSM state are likewise updated in place.  The float32
 master weights are cast to the compute dtype once, when the engine is
 built, which computes the same numbers as the reference's cast per step.
 """
@@ -32,6 +37,8 @@ from repro_torch.serving.offload import KVOffloadManager, LRUOffloadManager
 #: (attention-mass EMA driving the paper's policy engine).  The reference's
 #: "manager" kind fine-tunes a predictor and waits for the training slice.
 OFFLOAD_KINDS = {"lru": LRUOffloadManager, "learned": KVOffloadManager}
+#: the families with a KV cache, the only ones the reference offloads
+KV_FAMILIES = ("dense", "moe", "vlm", "encdec")
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -51,7 +58,7 @@ class Engine:
                  device: str | torch.device = "cuda"):
         if offload == "manager":
             raise NotImplementedError("offload='manager' (LearnedOffloadManager) fine-tunes a predictor on "
-                                      "the KV touch stream; it waits for the training slice (ROADMAP A1)")
+                                      "the KV touch stream; it waits for the training slice (ROADMAP A2)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = prm.cast_tree({k: _tensor(v, self.device) for k, v in params.items()},
@@ -62,8 +69,9 @@ class Engine:
         self.hbm_fraction = hbm_fraction
 
     def make_manager(self, total: int):
-        """The offload manager for a cache of ``total`` tokens, or None."""
-        if not self.offload_kind:
+        """The offload manager for a KV cache of ``total`` tokens, or None
+        (no offload kind, or a family without a KV cache)."""
+        if not self.offload_kind or self.cfg.family not in KV_FAMILIES:
             return None
         n_pages = (total + PAGE_TOKENS - 1) // PAGE_TOKENS
         cap = max(int(n_pages * self.hbm_fraction), 1)
@@ -129,4 +137,6 @@ class Engine:
         return mass, touched
 
     def _drive_offload(self, mgr, cache, pos):
+        if "k" not in cache:
+            return
         mgr.on_attention(*self.page_mass(cache, pos, mgr.n_pages))

@@ -11,7 +11,7 @@ surface (:class:`OffloadStats`):
 
 The JAX package's third manager, ``LearnedOffloadManager`` (the full
 streaming manager, which fine-tunes its predictor on the touch stream),
-waits for the training slice (ROADMAP A1).
+waits for the training slice (ROADMAP A2).
 
 The pool itself is simulated: the managers track residency and count the
 decisions.  Residency bookkeeping is numpy on the host, as in the

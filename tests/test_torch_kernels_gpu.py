@@ -17,6 +17,7 @@ from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import evict_select as ES
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import freq_table as FT
+from repro_torch.kernels import ssd_scan as SS
 
 pytestmark = pytest.mark.gpu
 
@@ -150,3 +151,99 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # float16 is not built
         DA.decode_attention_kernelcall(torch.zeros(1, 1, 2, 64, device=dev, dtype=torch.float16), kv.half(),
                                        kv.half(), 8)
+
+
+# ssd_scan against its plain version: the same float32 function with sums in
+# other orders (at the serve widths outputs reach about +-400 and the plain
+# version is off a float64 evaluation by up to 2e-3, the state, of up to
+# about 18, by 1.4e-4, and an H100's kernel was 3.1e-4 from the plain
+# state), plus in bf16 one ulp of y (the float32 sums may round it to either
+# neighbour).  A dropped diagonal or an unread state moves y by about 1 or more
+_SSD_TOL = {"float32": {"y": (1e-5, 4e-3), "state": (1e-5, 1e-3)},
+            "bfloat16": {"y": (2.0 ** -7, 4e-3), "state": (1e-5, 1e-3)}}
+
+
+def _ssd_inputs(dev, dtype, B, L, H, P, N, seed, dt_shift=0.0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, L, H, P)).astype(np.float32)
+    dt = (np.logaddexp(rng.standard_normal((B, L, H)), 0.0) + dt_shift).astype(np.float32)
+    A_log = (0.5 * rng.standard_normal(H)).astype(np.float32)
+    b, c = (rng.standard_normal((B, L, N)).astype(np.float32) for _ in range(2))
+    td = _DTYPES[dtype]
+    return (torch.tensor(x, device=dev).to(td), torch.tensor(dt, device=dev).to(td), torch.tensor(A_log, device=dev),
+            torch.tensor(b, device=dev).to(td), torch.tensor(c, device=dev).to(td))
+
+
+def _ssd_close(got, want, dtype) -> None:
+    tol = _SSD_TOL[dtype]
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol["y"][0], atol=tol["y"][1])
+    torch.testing.assert_close(got[1], want[1], rtol=tol["state"][0], atol=tol["state"][1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,H,P,N,chunk,dt_shift", [
+    (2, 2048, 32, 64, 128, 256, 0.0),  # one layer of the mamba2-370m serve prefill
+    (1, 512, 4, 64, 128, 256, 0.0),
+    (1, 256, 4, 64, 128, 64, 4.3),  # dt about 5: the masked exp overflows
+    (2, 128, 4, 16, 32, 32, 0.0),
+    (1, 64, 2, 32, 16, 16, 0.0),
+    (1, 200, 2, 48, 64, 100, 0.0),  # chunks of 100: ragged tiles; P 48: slices of 16
+])
+def test_ssd_scan_matches_plain(dev, dtype, B, L, H, P, N, chunk, dt_shift):
+    args = _ssd_inputs(dev, dtype, B, L, H, P, N, seed=L + P + N, dt_shift=dt_shift)
+    before = kernels.LAUNCHES["ssd_scan"]
+    got = SS.ssd_scan(*args, chunk=chunk)
+    assert kernels.LAUNCHES["ssd_scan"] == before + 1
+    assert got[0].dtype == args[0].dtype and got[1].dtype == torch.float32
+    assert torch.isfinite(got[0].float()).all() and torch.isfinite(got[1]).all()
+    _ssd_close(got, SS.ssd_scan_plain(*args, chunk), dtype)
+
+
+def _ssd_no_carry(x, dt, A_log, b, c, chunk):
+    """A defective plain version: no state carried into the second chunk."""
+    y0, _ = SS.ssd_scan_plain(x[:, :chunk], dt[:, :chunk], A_log, b[:, :chunk], c[:, :chunk], chunk)
+    y1, state = SS.ssd_scan_plain(x[:, chunk:], dt[:, chunk:], A_log, b[:, chunk:], c[:, chunk:], chunk)
+    return torch.cat([y0, y1], 1), state
+
+
+def _ssd_no_diagonal(x, dt, A_log, b, c, chunk):
+    """A defective plain version: key j = i left out of query i's sum."""
+    a = -torch.exp(A_log.float())
+    state = torch.zeros((x.shape[0], x.shape[2], x.shape[3], b.shape[-1]), device=x.device)
+    mask = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril(-1)
+    ys = []
+    for c0 in range(0, x.shape[1], chunk):
+        sl = slice(c0, c0 + chunk)
+        state, y = SS.ssd_chunk_plain(state, x[:, sl].float(), dt[:, sl].float(), a, b[:, sl].float(),
+                                      c[:, sl].float(), mask)
+        ys.append(y.to(x.dtype))
+    return torch.cat(ys, 1), state
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("defect", [_ssd_no_diagonal, _ssd_no_carry])
+def test_ssd_scan_limits_reject_a_defective_plain_version(dev, dtype, defect):
+    args = _ssd_inputs(dev, dtype, 2, 512, 8, 64, 128, seed=9)
+    with pytest.raises(AssertionError):
+        _ssd_close(SS.ssd_scan(*args, chunk=256), defect(*args, 256), dtype)
+
+
+def test_ssd_scan_rejects_what_the_kernel_does_not_take(dev):
+    x, dt, A_log, b, c = _ssd_inputs(dev, "bfloat16", 1, 64, 2, 16, 16, seed=1)
+    with pytest.raises(NotImplementedError):
+        SS.ssd_scan(x, dt, A_log, b, c, chunk=16, initial_state=torch.zeros(1, 2, 16, 16, device=dev))
+    with pytest.raises(ValueError):  # ragged sequence
+        SS.ssd_scan(x[:, :40].contiguous(), dt[:, :40].contiguous(), A_log, b[:, :40].contiguous(),
+                    c[:, :40].contiguous(), chunk=16)
+    with pytest.raises(ValueError):  # mixed dtypes
+        SS.ssd_scan(x, dt.float(), A_log, b, c, chunk=16)
+    with pytest.raises(ValueError):  # not contiguous
+        SS.ssd_scan(torch.zeros(1, 64, 2, 32, device=dev, dtype=torch.bfloat16)[..., :16], dt, A_log, b, c, chunk=16)
+    with pytest.raises(ValueError):  # mixed devices
+        SS.ssd_scan(x, dt, A_log.cpu(), b, c, chunk=16)
+    x8 = torch.zeros(1, 64, 2, 8, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # head width not a multiple of 16
+        SS.ssd_scan(x8, dt, A_log, b, c, chunk=16)
+    b48 = torch.zeros(1, 64, 48, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # state width not built
+        SS.ssd_scan(x, dt, A_log, b48, b48, chunk=16)

@@ -31,13 +31,13 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     out = subprocess.run([sys.executable, "-c", _CHILD], capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["modules"] >= 36
+    assert res["modules"] >= 44
     assert res["leaked"] == []
 
 
 _SERVE_CHILD = """
 import json, sys
-import repro_torch.launch.serve, repro_torch.serving.engine
+import repro_torch.launch.serve, repro_torch.serving.engine, repro_torch.models.mamba2, repro_torch.kernels.ssd_scan
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
 print(json.dumps(leaked))
@@ -108,6 +108,14 @@ def test_entry_points_default_to_the_card():
         KVOffloadManager(4, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PagedKV.create(1, 2, 1, 4, 1, 2)
+    from repro_torch.configs.mamba2_370m import SMOKE as SSM_SMOKE
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "mamba2-370m", "--smoke", "--prompt-len", "16", "--new-tokens", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(SSM_SMOKE, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init(0, SSM_SMOKE)
     assert Engine(LM_SMOKE, lm.init(0, LM_SMOKE, device="cpu"), device="cpu").device.type == "cpu"
     # the same entry points run when the caller asks for the CPU
     assert OversubscriptionManager(ManagerConfig(predictor=SMOKE), device="cpu").device.type == "cpu"
