@@ -16,9 +16,13 @@ Phases, in order; any failure exits non-zero:
               attention within one bf16 ulp plus ``DECODE_ATOL`` or
               ``FLASH_ATOL``, the SSD scan within ``SSD_TOL``, whose limits
               reject a plain version without the diagonal or without the
-              state at a chunk boundary), and time kernel,
-              plain version and (for attention) ``scaled_dot_product_
-              attention`` with CUDA events.
+              state at a chunk boundary), the thrashing CE within
+              ``THRASH_LOSS_TOL``/``THRASH_GRAD_TOL`` and the attention
+              backward within ``ATTN_BWD_TOL`` (which reject an unmasked
+              padded class, a dropped weight and a dropped causal mask),
+              and time kernel, plain version and the library call
+              (``scaled_dot_product_attention`` and its backward,
+              ``cross_entropy`` and its backward) with CUDA events.
 4. main     — the paper's online loop, ``repro_torch.uvm.runtime.run_ours``,
               on Hotspot at scale 1.0 and 150% oversubscription with the
               paper-width predictor (``CONFIG``), ``TrainConfig(2048, 0,
@@ -48,7 +52,8 @@ Phases, in order; any failure exits non-zero:
               masses before the first fork are within ``MASS_RTOL``, with
               ``flash_attention_bf16`` launched once
               per layer, ``decode_attention`` once per layer and step and
-              ``freq_update`` once per step; and a profiled second free run.
+              ``freq_update`` once per step; and a profiled run of the
+              prefill and the first 64 decode steps.
 6. serve mamba2 — the same engine on mamba2-370m at full width (48 layers,
               420M parameters, bf16; no KV cache, so no offload manager),
               batch 2, a 2048-token prompt, 128 new tokens, against the JAX
@@ -61,6 +66,22 @@ Phases, in order; any failure exits non-zero:
               a float32 free run by the fork rule; the bf16 free run with
               ``ssd_scan`` launched once per layer and no other kernel, its
               forks by the fork rule; and a profiled second free run.
+7. train    — the training path against the JAX package's runs on a CPU:
+              (a) the fine-tune group recorded in ``experiments/torch/
+              train_hotspot_ref.npz`` (24 steps of ``TrainConfig()`` at
+              ``CONFIG`` from its slot of the pretrained table): the first
+              steps' loss and gradient norm and the update within the
+              ``TRAIN_*`` limits, ``thrash_ce_fwd``/``_bwd`` launched once
+              per step and ``flash_attention_bwd`` once per step, block and
+              layer; (b) the fine-tuned ``run_ours`` on Hotspot x1.5 from
+              the pretrained table within the ``RUN_*`` limits, host seconds
+              per stage, and a second run under ``torch.profiler`` that must
+              give identical stats and top-1; (c) the ``manager`` KV offload:
+              the qwen2 reference's page-mass stream replayed through
+              ``LearnedOffloadManager`` from the JAX package's initial slots
+              (``experiments/torch/serve_manager_ref.npz``) with equal stats
+              and prefetches, then a free qwen2-0.5b run with it (tokens by
+              the fork rule, the training kernels launched).
 
 The last lines are the card's ``nvidia-smi`` line, a ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -80,6 +101,8 @@ REF = ROOT / "experiments" / "torch" / "hotspot_paper_ref.json"
 WEIGHTS = ROOT / "experiments" / "torch" / "pretrain_paper.npz"
 SERVE_REF = ROOT / "experiments" / "torch" / "serve_qwen2_ref.npz"
 MAMBA2_REF = ROOT / "experiments" / "torch" / "serve_mamba2_ref.npz"
+TRAIN_REF = ROOT / "experiments" / "torch" / "train_hotspot_ref.npz"
+SERVE_MANAGER_REF = ROOT / "experiments" / "torch" / "serve_manager_ref.npz"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -125,6 +148,32 @@ STATE_NORM_RTOL = {"bfloat16": 0.75, "float32": 1e-3}
 # moves y by about 1 or more
 SSD_TOL = {"float32": {"y": (1e-5, 4e-3), "state": (1e-5, 1e-3)},
            "bfloat16": {"y": (2.0 ** -7, 4e-3), "state": (1e-5, 1e-3)}}
+# thrash_ce against its plain version: the same float32 function, expf
+# against torch's exp and sums in other orders; the gradient's elements are
+# at most 1/B.  A padded class left unmasked or the weight dropped moves the
+# loss or the gradient far past these (tests/test_torch_thrash_ce.py)
+THRASH_LOSS_TOL, THRASH_GRAD_TOL = (1e-5, 1e-6), (1e-5, 1e-9)
+# the attention backward against autograd through the plain version: float32
+# sums in other orders through the softmax's backward (dS = P * (dP - D));
+# a causal mask dropped in the backward is off by about 1
+ATTN_BWD_TOL = (1e-4, 1e-5)
+# phase 7 against the JAX package on a CPU, limits set from a rehearsal on a
+# CPU with the plain versions (scripts/rehearse_training_cpu.py; numbers in
+# PERF.md section 2).  AdamW steps on gradient elements near the float32
+# rounding of a very confident model (nll about 1e-5 at logits of 16), so two
+# summation orders drift apart within a group and the online loop amplifies
+# it.  (a) one fine-tune group: the first steps' loss and gradient norm
+# (CPU 9.2e-4, 1.2e-3; mu unscaled 0.13; LUCIR dropped 1.0) and the update's
+# distance from the reference's over the update's own norm (CPU 0.018; the
+# defects 0.25 and 1.25)
+TRAIN_STEPS_HELD, TRAIN_STEP_RTOL, TRAIN_UPDATE_RTOL = 4, 1e-2, 0.08
+# (b) the fine-tuned run: top-1 and the counters (correct CPU runs that
+# differ only in thread count or one ulp of the weights: up to 0.012 and
+# 0.42; mu unscaled 0.028 and 0.35), the first groups' accuracies (CPU
+# exact).  Only top-1 separates a defect here; the bias-correction and
+# LUCIR defects move (b) no more than summation order does, (a) rejects the
+# LUCIR one and (c), whose slots start at step 0, all three
+RUN_TOP1_ATOL, RUN_STATS_RTOL, RUN_GROUPS_HELD, RUN_GROUP_ACC_ATOL = 0.02, 0.4, 4, 2.5e-3
 
 
 class SmokeFailure(Exception):
@@ -162,6 +211,29 @@ def time_cuda(fn, iters: int, warmup: int = 10) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_times(prof) -> dict:
+    """Seconds and count of each operation a ``torch.profiler`` run recorded
+    on the device (kernels, copies, fills), by name.  Read from the raw
+    Kineto events: ``key_averages()`` builds a Python object per event,
+    about 0.1 ms each, minutes for a run of a million launches."""
+    import torch
+
+    out: dict = {}
+    results = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if results is None:  # a PyTorch without the raw events: the averages, slowly
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total", None)
+            t = getattr(ev, "cuda_time_total", 0.0) if t is None else t
+            if t and ev.count:
+                out[ev.key] = (t / 1e6, ev.count)
+        return out
+    for ev in results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            t, c = out.get(ev.name(), (0.0, 0))
+            out[ev.name()] = (t + ev.duration_ns() / 1e9, c + 1)
+    return out
+
+
 def device_ms(fn, kernel: str, iters: int = 50) -> float | None:
     """Mean device time (ms) of the port kernel ``kernel`` (its device
     symbol matched by ``is_kernel``), from ``torch.profiler``; None if the
@@ -178,15 +250,9 @@ def device_ms(fn, kernel: str, iters: int = 50) -> float | None:
     except Exception as exc:  # the profiler is a diagnostic here; the events time stands
         print(f"  (torch.profiler gave no device times: {exc!r})")
         return None
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if is_kernel(kernel, ev.key):
-            t = getattr(ev, "device_time_total", None)
-            if t is None:
-                t = getattr(ev, "cuda_time_total", 0.0)
-            total += t
-            count += ev.count
-    return total / count / 1e3 if count and total > 0 else None
+    hits = [tc for name, tc in device_times(prof).items() if is_kernel(kernel, name)]
+    total, count = sum(t for t, _ in hits), sum(c for _, c in hits)
+    return total / count * 1e3 if count and total > 0 else None
 
 
 # --- phase 3: each kernel against its plain version --------------------------
@@ -597,6 +663,173 @@ def kernel_ssd_scan(dev) -> dict:
             "shape": f"B {B}, L {L}, H {H}, P {P}, N {N}, chunk {Q}, bf16"}
 
 
+THRASH_SHAPES = ((256, 1024, 700), (32, 32, 20))  # (B, V, n_active): CONFIG's fine-tune, the serving manager's
+
+
+def _thrash_inputs(dev, B, V, n_active, seed):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    logits = torch.tensor((3 * rng.standard_normal((B, V))).astype(np.float32), device=dev)
+    labels = torch.tensor(rng.integers(0, n_active, B).astype(np.int32), device=dev)
+    et = torch.tensor(rng.random(B) < 0.3, device=dev)
+    return logits, labels, et
+
+
+def _thrash_defects(K):
+    """Two defective plain versions: the padded classes unmasked, the
+    thrashing weight dropped."""
+    import torch
+
+    return {"no_mask": lambda lg, lab, et, na, mu: K.thrash_ce_plain(lg, lab, et, lg.shape[-1], mu),
+            "no_weight": lambda lg, lab, et, na, mu: K.thrash_ce_plain(lg, lab, torch.zeros_like(et), na, mu)}
+
+
+def kernel_thrash_ce(dev) -> list[dict]:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import thrash_ce as K
+
+    mu = 0.5
+    worst = {"loss": 0.0, "grad": 0.0}
+    defects = {}
+    for B, V, n_active in THRASH_SHAPES:
+        logits, labels, et = _thrash_inputs(dev, B, V, n_active, seed=V)
+        lg = logits.clone().requires_grad_(True)
+        loss = K.thrash_ce(lg, labels, et, n_active, mu)
+        (grad,) = torch.autograd.grad(loss, lg)
+        plain_lg = logits.clone().requires_grad_(True)
+        want = K.thrash_ce_plain(plain_lg, labels, et, n_active, mu)
+        (want_grad,) = torch.autograd.grad(want, plain_lg)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(loss)) and bool(torch.isfinite(grad).all()), f"thrash_ce gave non-finite values at B {B} V {V}")
+        ok = lambda l, g: (torch.allclose(l, want, rtol=THRASH_LOSS_TOL[0], atol=THRASH_LOSS_TOL[1])
+                           and torch.allclose(g, want_grad, rtol=THRASH_GRAD_TOL[0], atol=THRASH_GRAD_TOL[1]))
+        check(ok(loss.detach(), grad), f"thrash_ce differs from plain at B {B} V {V}: loss {float(loss.detach())} vs "
+              f"{float(want.detach())}, grad max |err| {float((grad - want_grad).abs().max())}")
+        check(bool((grad[:, n_active:] == 0).all()), "thrash_ce's backward sent a gradient to a padded class")
+        worst = {"loss": max(worst["loss"], float((loss - want).abs())),
+                 "grad": max(worst["grad"], float((grad - want_grad).abs().max()))}
+        for name, bad in _thrash_defects(K).items():
+            bad_lg = logits.clone().requires_grad_(True)
+            bl = bad(bad_lg, labels, et, n_active, mu)
+            (bg,) = torch.autograd.grad(bl, bad_lg)
+            check(not ok(bl.detach(), bg), f"the thrash_ce limits pass a plain version with the defect {name}")
+            defects[f"{name} B{B}"] = max(float((bl - want).abs()), float((bg - want_grad).abs().max()))
+    print(f"  thrash_ce: B256 V1024 and B32 V32, loss within rtol/atol {THRASH_LOSS_TOL}, grad {THRASH_GRAD_TOL}: "
+          f"max |err| loss {worst['loss']:.3g}, grad {worst['grad']:.3g}; padded classes get no gradient; defective "
+          f"plain versions off by {json.dumps(defects)}, rejected")
+    B, V, n_active = THRASH_SHAPES[0]
+    logits, labels, et = _thrash_inputs(dev, B, V, n_active, seed=1)
+    zero = torch.zeros_like(et)
+    masked = torch.where(torch.arange(V, device=dev) >= n_active, torch.full_like(logits, -1e30), logits)
+    g = torch.ones((), device=dev)
+    # the library yardstick computes the in_et = 0 case on the masked logits
+    check(torch.allclose(F.cross_entropy(masked, labels.long()), K.thrash_ce_plain(logits, labels, zero, n_active, mu),
+                         rtol=1e-5, atol=1e-6), "the cross_entropy yardstick computes another function")
+    # backward timings: one forward kept, its graph's backward timed alone
+    plain_lg = logits.clone().requires_grad_(True)
+    plain_loss = K.thrash_ce_plain(plain_lg, labels, et, n_active, mu)
+    lib_lg = masked.clone().requires_grad_(True)
+    lib_loss = F.cross_entropy(lib_lg, labels.long())
+    fwd_bytes = 4 * B * V + 2 * 4 * B + 4  # logits, labels, flags in; one loss out
+    bwd_bytes = 2 * 4 * B * V + 2 * 4 * B + 4  # logits, labels, flags, g in; dlogits out
+    # a max, a sum of exponentials and the label pick per element; the backward's exp, divide and weight
+    fwd_flops, bwd_flops = 4 * B * V, 6 * B * V
+    common = {"route": "cuda", "source": "src/repro_torch/csrc/thrash_ce.cu", "shape": f"B {B}, V {V}, float32"}
+    fwd = {"name": "thrash_ce_fwd", **common, "replaces": "src/repro/kernels/thrash_ce/kernel.py:50",
+           "max_abs_err": worst["loss"], "ms": time_cuda(lambda: K.thrash_ce(logits, labels, et, n_active, mu), 500),
+           "plain_ms": time_cuda(lambda: K.thrash_ce_plain(logits, labels, et, n_active, mu), 200),
+           "bound_ms": max(fwd_bytes / HBM_BYTES_PER_S, fwd_flops / FP32_FLOPS) * 1e3,
+           "bound_by": "bytes" if fwd_bytes / HBM_BYTES_PER_S >= fwd_flops / FP32_FLOPS else "operations",
+           "library_ms": time_cuda(lambda: F.cross_entropy(masked, labels.long()), 500),
+           "device_ms": device_ms(lambda: K.thrash_ce(logits, labels, et, n_active, mu), "thrash_ce_fwd")}
+    bwd = {"name": "thrash_ce_bwd", **common, "replaces": "src/repro/kernels/thrash_ce/kernel.py:71",
+           "max_abs_err": worst["grad"],
+           "ms": time_cuda(lambda: K.thrash_ce_bwd(logits, labels, et, n_active, mu, g), 500),
+           "plain_ms": time_cuda(lambda: torch.autograd.grad(plain_loss, plain_lg, retain_graph=True), 200),
+           "bound_ms": max(bwd_bytes / HBM_BYTES_PER_S, bwd_flops / FP32_FLOPS) * 1e3,
+           "bound_by": "bytes" if bwd_bytes / HBM_BYTES_PER_S >= bwd_flops / FP32_FLOPS else "operations",
+           "library_ms": time_cuda(lambda: torch.autograd.grad(lib_loss, lib_lg, retain_graph=True), 500),
+           "device_ms": device_ms(lambda: K.thrash_ce_bwd(logits, labels, et, n_active, mu, g), "thrash_ce_bwd")}
+    return [fwd, bwd]
+
+
+def kernel_flash_attention_bwd(dev) -> dict:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as K
+
+    rng = np.random.default_rng(8)
+
+    def inputs(B, S, T, Kh, G, D):
+        mk = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32), device=dev)
+        return mk(B, S, Kh, G, D), mk(B, T, Kh, D), mk(B, T, Kh, D), mk(B, S, Kh, G, D)
+
+    def within(got, want):
+        return all(torch.allclose(a, b, rtol=ATTN_BWD_TOL[0], atol=ATTN_BWD_TOL[1]) for a, b in zip(got, want))
+
+    worst = 0.0
+    cases = [((256, 10, 10, 2, 1, 32), {}), ((256, 10, 10, 2, 1, 8), {}), ((3, 37, 37, 2, 3, 64), {}),
+             ((2, 5, 70, 1, 2, 16), {"q_offset": 65}), ((4, 10, 10, 2, 1, 32), {"causal": False, "kv_len": 7}),
+             ((2, 9, 9, 2, 1, 128), {"kv_len": 6})]
+    for shape, kw in cases:
+        q, k, v, do = inputs(*shape)
+        got = K.flash_attention_bwd(q, k, v, do, **kw)
+        want = K.attention_grads_plain(q, k, v, do, **kw)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(g).all()) for g in got), f"flash_attention_bwd gave non-finite values at {shape} {kw}")
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        check(within(got, want), f"flash_attention_bwd differs from plain at {shape} {kw}: max |err| {err}")
+        worst = max(worst, err)
+    # through autograd: the wrapper's gradient is the backward kernel's
+    q, k, v, do = inputs(8, 10, 10, 2, 1, 32)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    K.flash_attention(*leaves).backward(do)
+    check(all(torch.equal(t.grad, g) for t, g in zip(leaves, K.flash_attention_bwd(q, k, v, do))),
+          "autograd through flash_attention did not give the backward kernel's gradient")
+    # the limits reject a plain version whose backward drops the causal mask
+    q, k, v, do = inputs(256, 10, 10, 2, 1, 32)
+    got = K.flash_attention_bwd(q, k, v, do)
+    with torch.enable_grad():
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        out = (K.attend_chunked(qq, kk, vv).detach() + K.attend_chunked(qq, kk, vv, causal=False)
+               - K.attend_chunked(qq, kk, vv, causal=False).detach())
+        bad = torch.autograd.grad(out, (qq, kk, vv), do)
+    check(not within(got, bad), "the attention backward limits pass a dropped causal mask")
+    off = max(float((a - b).abs().max()) for a, b in zip(got, bad))
+    print(f"  flash_attention_bwd: {len(cases)} shapes (the predictor's CONFIG and SMOKE shapes first), rtol/atol "
+          f"{ATTN_BWD_TOL}: max |err| {worst:.3g}; autograd reaches the kernel; causal mask dropped: off by "
+          f"{off:.3g}, rejected")
+    B, S, T, Kh, G, D = 256, 10, 10, 2, 1, 32
+    q, k, v, do = inputs(B, S, T, Kh, G, D)
+    with torch.enable_grad():
+        pl = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        plain_out = K.attend_chunked(*pl)
+        lib = [t.clone().requires_grad_(True) for t in _sdpa_layout(q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib, is_causal=True)
+    lib_do = do.reshape(B, S, Kh * G, D).transpose(1, 2).contiguous()
+    lib_grads = torch.autograd.grad(lib_out, lib, lib_do, retain_graph=True)
+    check(torch.allclose(lib_grads[0].transpose(1, 2).reshape(B, S, Kh, G, D), K.flash_attention_bwd(q, k, v, do)[0],
+                         rtol=1e-3, atol=1e-4), "the SDPA backward yardstick computes another function")
+    pairs = S * (S + 1) // 2
+    nbytes = 4 * (2 * q.numel() + 2 * k.numel()) + 4 * (q.numel() + 2 * k.numel())  # q, do, k, v in; dq, dk, dv out
+    flops = 5 * 2 * B * Kh * G * pairs * D  # scores, dP, dQ, dK, dV over the causal pairs
+    return {"name": "flash_attention_bwd", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:71", "max_abs_err": worst,
+            "ms": time_cuda(lambda: K.flash_attention_bwd(q, k, v, do), 500),
+            "plain_ms": time_cuda(lambda: torch.autograd.grad(plain_out, pl, do, retain_graph=True), 200),
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS else "operations",
+            "library_ms": time_cuda(lambda: torch.autograd.grad(lib_out, lib, lib_do, retain_graph=True), 500),
+            "device_ms": device_ms(lambda: K.flash_attention_bwd(q, k, v, do), "flash_attention_bwd"),
+            "shape": f"B {B}, S=T {S}, K {Kh}, G {G}, D {D}, float32, causal"}
+
+
 # --- phase 4: the main path ------------------------------------------------------
 
 
@@ -660,8 +893,9 @@ def main_path(dev) -> tuple[dict, dict]:
 
 KERNEL_SYMBOLS = {"evict_select": "evict_select_kernel", "freq_update": "freq_update_kernel",
                   "freq_lookup": "freq_lookup_kernel", "flash_attention": "fa_fwd_kernel",
-                  "flash_attention_bf16": "fa_fwd_kernel", "decode_attention": "decode_attention_kernel",
-                  "ssd_scan": "ssd_scan_kernel"}
+                  "flash_attention_bf16": "fa_fwd_kernel", "flash_attention_bwd": "fa_bwd_kernel",
+                  "decode_attention": "decode_attention_kernel", "ssd_scan": "ssd_scan_kernel",
+                  "thrash_ce_fwd": "thrash_ce_fwd_kernel", "thrash_ce_bwd": "thrash_ce_bwd_kernel"}
 
 
 def is_kernel(name: str, symbol: str) -> bool:
@@ -689,13 +923,7 @@ def profile_run(label: str, run):
         res = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", None)
-        if t is None:
-            t = getattr(ev, "cuda_time_total", 0.0)
-        if t and ev.count:
-            by_name[ev.key] = (t / 1e6, ev.count)
+    by_name = device_times(prof)
     busy = sum(t for t, _ in by_name.values())
     port = {name: {"device_s": sum(t for k, (t, _) in by_name.items() if is_kernel(name, k)),
                    "count": sum(c for k, (_, c) in by_name.items() if is_kernel(name, k))}
@@ -711,7 +939,7 @@ def profile_run(label: str, run):
 # --- phases 5 and 6: the serving path ----------------------------------------------
 
 
-def load_serve_ref(path) -> tuple[dict, dict]:
+def load_ref(path) -> tuple[dict, dict]:
     import numpy as np
 
     with np.load(path) as z:
@@ -782,7 +1010,7 @@ def timed(spent: dict, name: str, fn):
     return wrapper
 
 
-def serve_path(dev) -> dict:
+def serve_path(dev):
     import numpy as np
     import torch
 
@@ -792,7 +1020,7 @@ def serve_path(dev) -> dict:
     from repro_torch.models.params import numpy_params
     from repro_torch.serving.engine import OFFLOAD_KINDS, Engine
 
-    ref, run = load_serve_ref(SERVE_REF)
+    ref, run = load_ref(SERVE_REF)
     cfg = get_config(run["arch"])
     S, n_new, pad_to = run["prompt_len"], run["n_new"], run["pad_to"]
     prompt = np.random.default_rng(run["prompt_seed"]).integers(0, cfg.vocab_size, (run["batch"], S))
@@ -893,10 +1121,10 @@ def serve_path(dev) -> dict:
     for name, n in want.items():
         check(launches[name] == n, f"the serve path launched {name} {launches[name]} times, not {n}")
     check(all(launches[k] == 0 for k in launches if k not in want), f"the serve path launched other kernels: {launches}")
-    # 4. where the device time goes
-    res2 = profile_run("serve", lambda: eng.generate({"tokens": prompt}, n_new, pad_to=pad_to))
-    check(np.array_equal(res2.tokens, res.tokens), "the profiled serve run gave other tokens")
-    return launches
+    # 4. where the device time goes: prefill and the first 64 decode steps, to keep the phase short
+    res2 = profile_run("serve", lambda: eng.generate({"tokens": prompt}, 64, pad_to=pad_to))
+    check(np.array_equal(res2.tokens, res.tokens[:, :64]), "the profiled serve run gave other tokens")
+    return launches, eng, prompt
 
 
 def teacher_forced_ssm(eng, ref, prompt, atol: float, norm_rtol: float, dev, label: str) -> None:
@@ -938,7 +1166,7 @@ def mamba2_reference_checks(dev):
     from repro_torch.models.params import numpy_params
     from repro_torch.serving.engine import Engine
 
-    ref, run = load_serve_ref(MAMBA2_REF)
+    ref, run = load_ref(MAMBA2_REF)
     cfg = get_config(run["arch"])
     S, n_new = run["prompt_len"], run["n_new"]
     prompt = np.random.default_rng(run["prompt_seed"]).integers(0, cfg.vocab_size, (run["batch"], S))
@@ -1006,6 +1234,254 @@ def serve_mamba2_path(dev) -> dict:
     return launches
 
 
+# --- phase 7: the training path ------------------------------------------------------
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_group_run(dev) -> dict:
+    """Phase 7 (a) up to its checks: the reference's recorded fine-tune group
+    (``TrainConfig()`` at ``CONFIG``: 24 steps, LUCIR and the thrashing term
+    on) from its slot of the pretrained table with fresh moments, on
+    ``dev``.  Returns each step's loss and gradient norm, the distance of
+    the update from the reference's and the launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.predictor_paper import CONFIG
+    from repro_torch.core.features import FeatureSet
+    from repro_torch.core.incremental import TrainConfig, Trainer
+    from repro_torch.core.model_table import Entry, clone_tree
+    from repro_torch.uvm import runtime as R
+
+    ref, meta = load_ref(TRAIN_REF)
+    slot = R.load_pretrained(WEIGHTS, CONFIG, dev).slots[meta["slot"]]
+    check(slot.step == meta["step"] and slot.opt_state is None, "the table's slot is not the reference group's start")
+    fs = FeatureSet(*(ref[f"group/{f}"] for f in ("page", "delta", "pc", "tb", "label", "label_page", "t_index")))
+    trainer = Trainer(CONFIG, TrainConfig(**meta["train"]), device=dev)
+    metrics = []
+    step = trainer._train_step
+
+    def recording(*a):
+        out = step(*a)
+        metrics.append(out[2])
+        return out
+
+    trainer._train_step = recording
+    entry = Entry(params=clone_tree(slot.params), prev_params=clone_tree(slot.params), step=slot.step)
+    _sync(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer.train_group(entry, fs, meta["n_active"], in_et=ref["in_et"], use_lucir=meta["use_lucir"])
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    loss = np.array([float(m["total"]) for m in metrics])
+    gnorm = np.array([float(m["grad_norm"]) for m in metrics])
+    num = den = 0.0
+    max_abs = 0.0
+    for k, p in entry.params.items():
+        got, start, want = p.double().cpu().numpy(), slot.params[k].double().cpu().numpy(), ref[f"final/{k}"]
+        num += float(np.sum((got - want) ** 2))
+        den += float(np.sum((want - start) ** 2))
+        max_abs = max(max_abs, float(np.abs(got - want).max()))
+    rel = lambda a, b: np.abs(a - b) / np.abs(b)
+    held = slice(0, TRAIN_STEPS_HELD)
+    return {"n_steps": len(metrics), "want_steps": meta["n_steps"], "wall_s": wall, "launches": launches,
+            "loss": loss.tolist(), "grad_norm": gnorm.tolist(),
+            "loss_rtol_held": float(rel(loss, ref["step_loss"])[held].max()),
+            "grad_norm_rtol_held": float(rel(gnorm, ref["step_grad_norm"])[held].max()),
+            "loss_rtol_all": float(rel(loss, ref["step_loss"]).max()),
+            "update_rel": (num / den) ** 0.5, "params_max_abs": max_abs}
+
+
+def train_group_check(dev) -> dict:
+    from repro_torch.configs.predictor_paper import CONFIG
+
+    res = train_group_run(dev)
+    print("  train_group: " + json.dumps({k: v for k, v in res.items() if k not in ("loss", "grad_norm")}))
+    n = res["want_steps"]
+    check(res["n_steps"] == n, f"the group took {res['n_steps']} steps, not {n}")
+    check(res["loss_rtol_held"] <= TRAIN_STEP_RTOL and res["grad_norm_rtol_held"] <= TRAIN_STEP_RTOL,
+          f"the first {TRAIN_STEPS_HELD} steps' loss or gradient norm differ from the reference's by rtol "
+          f"{res['loss_rtol_held']} / {res['grad_norm_rtol_held']} > {TRAIN_STEP_RTOL}")
+    check(res["update_rel"] <= TRAIN_UPDATE_RTOL, f"the group's update differs from the reference's by "
+          f"{res['update_rel']} of its norm > {TRAIN_UPDATE_RTOL}")
+    want = {"thrash_ce_fwd": n, "thrash_ce_bwd": n, "flash_attention_bwd": n * 2 * CONFIG.num_layers}
+    for name, count in want.items():
+        check(res["launches"][name] == count, f"train_group launched {name} {res['launches'][name]} times, not {count}")
+    print(f"  train_group: {n} steps in {res['wall_s']:.3f} s; the first {TRAIN_STEPS_HELD} steps' loss and gradient "
+          f"norm within rtol {max(res['loss_rtol_held'], res['grad_norm_rtol_held']):.3g} ({TRAIN_STEP_RTOL}); the "
+          f"update within {res['update_rel']:.3g} of its norm ({TRAIN_UPDATE_RTOL}); launches {json.dumps(want)}")
+    return res["launches"]
+
+
+def fine_tuned_run(dev, spent: dict | None = None):
+    """The reference's fine-tuned ``run_ours`` (Hotspot x1.5, ``TrainConfig()``,
+    ``CONFIG``) from the pretrained table, whose slots have no optimizer
+    moments, on ``dev``; with ``spent``, host seconds per stage."""
+    from repro_torch.configs.predictor_paper import CONFIG
+    from repro_torch.core.incremental import TrainConfig, Trainer
+    from repro_torch.uvm import runtime as R
+    from repro_torch.uvm import simulator as S
+    from repro_torch.uvm import trace as T
+    from repro_torch.uvm.manager import OversubscriptionManager
+
+    _, meta = load_ref(TRAIN_REF)
+    trace = T.get_trace(meta["benchmark"], meta["scale"])
+    table = R.load_pretrained(WEIGHTS, CONFIG, dev)
+    stages = {"observe": (OversubscriptionManager, "observe"), "run_segment": (S, "run_segment"),
+              "train_group": (Trainer, "train_group")}
+    originals = {k: getattr(o, a) for k, (o, a) in stages.items()}
+    if spent is not None:
+        for k, (o, a) in stages.items():
+            setattr(o, a, timed(spent, k, originals[k]))
+    try:
+        return R.run_ours(trace, CONFIG, TrainConfig(**meta["train"]), oversubscription=meta["oversubscription"],
+                          table=table, device=dev)
+    finally:
+        for k, (o, a) in stages.items():
+            setattr(o, a, originals[k])
+
+
+def run_distances(res) -> dict:
+    """How far a fine-tuned run is from the reference's."""
+    ref, meta = load_ref(TRAIN_REF)
+    want = meta["run"]
+    rel = {k: abs(res.stats[k] - want["stats"][k]) / want["stats"][k]
+           for k in ("pages_thrashed", "faults", "migrated_blocks")}
+    first = [abs(a - b) for a, b in zip(res.per_group_acc[:RUN_GROUPS_HELD], ref["per_group_acc"][:RUN_GROUPS_HELD])]
+    return {"stats": res.stats, "top1": res.top1, "top1_diff": abs(res.top1 - want["top1"]), "stats_rtol": rel,
+            "n_predictions_equal": res.n_predictions == want["n_predictions"],
+            "occupancy_equal": res.stats["occupancy"] == want["stats"]["occupancy"],
+            "first_groups_acc_diff": max(first), "per_group_acc": res.per_group_acc}
+
+
+def fine_tuned_check(dev) -> dict:
+    import torch
+
+    from repro_torch import kernels
+
+    spent = {"observe": 0.0, "run_segment": 0.0, "train_group": 0.0}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = fine_tuned_run(dev, spent)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    d = run_distances(res)
+    print("  fine-tuned run: " + json.dumps({**{k: v for k, v in d.items() if k != "per_group_acc"},
+                                              "wall_s": wall, "stage_s": spent, "launches": launches}))
+    check(d["n_predictions_equal"] and d["occupancy_equal"], "prediction count or occupancy differ from the reference")
+    check(d["top1_diff"] <= RUN_TOP1_ATOL, f"top-1 {res.top1} is {d['top1_diff']} from the reference's (> {RUN_TOP1_ATOL})")
+    for k, r in d["stats_rtol"].items():
+        check(r <= RUN_STATS_RTOL, f"{k} {res.stats[k]} differs from the reference's by rtol {r} > {RUN_STATS_RTOL}")
+    check(d["first_groups_acc_diff"] <= RUN_GROUP_ACC_ATOL, f"the first {RUN_GROUPS_HELD} groups' accuracies differ "
+          f"from the reference's by {d['first_groups_acc_diff']} > {RUN_GROUP_ACC_ATOL}")
+    for name in ("evict_select", "freq_update", "flash_attention", "flash_attention_bwd", "thrash_ce_fwd",
+                 "thrash_ce_bwd"):
+        check(launches[name] > 0, f"the fine-tuned run never launched {name}")
+    t0 = time.perf_counter()
+    again = profile_run("fine-tuned run", lambda: fine_tuned_run(dev))
+    print(f"  fine-tuned run: the profiled run and its report took {time.perf_counter() - t0:.1f} s")
+    check(again.stats == res.stats and again.top1 == res.top1,
+          f"a second fine-tuned run gave other results: {again.stats} {again.top1} (not deterministic)")
+    print(f"  fine-tuned run: within the limits; a second run gave identical stats and top-1; wall {wall:.3f} s")
+    return launches
+
+
+def manager_replay(dev) -> dict:
+    """The qwen2 reference's page-mass stream through the port's
+    ``LearnedOffloadManager`` started from the JAX package's initial slots:
+    its stats and each observed batch's prefetch blocks."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.core.model_table import ModelTable
+    from repro_torch.serving.offload import LearnedOffloadManager, _default_serving_manager
+
+    ref, meta = load_ref(SERVE_MANAGER_REF)
+    serve, _ = load_ref(SERVE_REF)
+    init = {}
+    for key, v in ref.items():
+        if key.startswith("init/"):
+            _, slot, name = key.split("/", 2)
+            init.setdefault(int(slot[len("slot"):]), {})[name] = v
+    table = ModelTable(lambda s: convert.params_from_jax(init[s], dev), n_slots=len(init))
+    n_pages, cap = meta["n_pages"], meta["capacity"]
+    m = LearnedOffloadManager(n_pages, cap, manager=_default_serving_manager(n_pages, cap, table=table, device=dev))
+    prefetched = []
+    observe = m._observe_batch
+
+    def recording():
+        observe()
+        prefetched.append(np.asarray(m.last_actions.prefetch_blocks, np.int64))
+
+    m._observe_batch = recording
+    for mass, touched in zip(serve["page_mass"], serve["touched"]):
+        m.on_attention(mass, np.nonzero(touched)[0])
+    off = ref["prefetch_offsets"]
+    want_pf = [ref["prefetch_blocks"][a:b] for a, b in zip(off[:-1], off[1:])]
+    same_pf = len(prefetched) == len(want_pf) and all(np.array_equal(a, b) for a, b in zip(prefetched, want_pf))
+    return {"stats": dataclasses.asdict(m.stats), "want": meta["stats"], "n_batches": len(prefetched),
+            "want_batches": meta["n_batches"], "prefetch_blocks_equal": same_pf,
+            "top1": m.manager.top1, "want_top1": meta["top1"],
+            "per_group_acc_diff": max([abs(a - b) for a, b in zip(m.manager.per_group, ref["per_group_acc"])],
+                                      default=0.0)}
+
+
+def serve_manager_check(dev, eng, prompt) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.serving.engine import Engine
+
+    t0 = time.perf_counter()
+    rep = manager_replay(dev)
+    print(f"  manager replay ({time.perf_counter() - t0:.1f} s): " + json.dumps(rep))
+    check(rep["n_batches"] == rep["want_batches"] and rep["stats"] == rep["want"] and rep["prefetch_blocks_equal"],
+          f"the replayed manager's stats {rep['stats']} (or its prefetches) differ from the JAX manager's {rep['want']}")
+    ref, run = load_ref(SERVE_REF)
+    n_new, pad_to = run["n_new"], run["pad_to"]
+    eng7 = Engine(eng.cfg, eng.params, offload="manager", hbm_fraction=run["hbm_fraction"], device=dev)
+    spent = {"decode": 0.0, "offload": 0.0}
+    originals = {"decode": eng7.decode, "offload": eng7._drive_offload}
+    eng7.decode, eng7._drive_offload = (timed(spent, k, f) for k, f in originals.items())
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            res = eng7.generate({"tokens": prompt}, n_new, pad_to=pad_to)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        eng7.decode, eng7._drive_offload = originals.values()
+    forks = fork_check(res.tokens, ref, SERVE_ATOL)
+    out = {"decode_ms_per_step": spent["decode"] / n_new * 1e3, "offload_ms_per_step": spent["offload"] / n_new * 1e3,
+           "wall_s": wall, "tokens_per_s": res.tokens.size / wall, "offload_stats": res.offload_stats,
+           "forks": forks, "launches": launches}
+    print("  manager free run: " + json.dumps(out))
+    L = eng.cfg.num_layers
+    check(launches["flash_attention_bf16"] == L and launches["decode_attention"] == L * n_new,
+          f"the manager free run's attention launches differ from phase 5's: {launches}")
+    for name in ("flash_attention", "flash_attention_bwd", "thrash_ce_fwd", "thrash_ce_bwd"):
+        check(launches[name] > 0, f"the manager offload never launched {name}")
+    check(sum(res.offload_stats.values()) > 0 and np.isfinite(out["decode_ms_per_step"]), "the manager offload idled")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1026,39 +1502,47 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
         smi = nvidia_smi_line()
-        print(f"[1/6] device: {name} (count {count}); nvidia-smi: {smi}")
+        print(f"[1/7] device: {name} (count {count}); nvidia-smi: {smi}")
         print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
         t0 = time.perf_counter()
         LIBRARY.cdll()
         how = "built" if LIBRARY.build_seconds is not None else "loaded the existing build"
-        print(f"[2/6] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
+        print(f"[2/7] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
         for line in LIBRARY.ptxas_log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line or line.startswith("=="):
                 print("      " + line.strip())
 
-        print(f"[3/6] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
+        print(f"[3/7] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
         rows = [kernel_evict_select(dev), *kernel_freq_table(dev), kernel_flash_attention(dev),
-                kernel_flash_attention_bf16(dev), kernel_decode_attention(dev), kernel_ssd_scan(dev)]
+                kernel_flash_attention_bf16(dev), kernel_flash_attention_bwd(dev), kernel_decode_attention(dev),
+                kernel_ssd_scan(dev), *kernel_thrash_ce(dev)]
         for r in rows:
-            print(f"  {r['name']:16s} {r['shape']}: kernel {r['ms']:.4f} ms/call (device {r['device_ms']}), "
+            print(f"  {r['name']:20s} {r['shape']}: kernel {r['ms']:.4f} ms/call (device {r['device_ms']}), "
                   f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, bound {r['bound_ms']:.6f} ms")
 
-        print(f"[4/6] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
+        by_path = {}
+        print(f"[4/7] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
-        _, run_ours_launches = main_path(dev)
-        print(f"[5/6] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
+        _, by_path["run_ours"] = main_path(dev)
+        print(f"[5/7] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
-        serve_launches = serve_path(dev)
-        print(f"[6/6] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
+        by_path["serve"], qwen2_engine, qwen2_prompt = serve_path(dev)
+        print(f"[6/7] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
-        mamba2_launches = serve_mamba2_path(dev)
+        by_path["serve_mamba2"] = serve_mamba2_path(dev)
+        print(f"[7/7] train: one train_group, the fine-tuned run_ours (Hotspot x1.5, CONFIG, TrainConfig()) and the "
+              f"manager KV offload (qwen2-0.5b full width), on the card (at {time.perf_counter() - start:.0f} s)")
+        by_path["train_group"] = train_group_check(dev)
+        print(f"      (b) at {time.perf_counter() - start:.0f} s")
+        by_path["run_ours_fine_tuned"] = fine_tuned_check(dev)
+        print(f"      (c) at {time.perf_counter() - start:.0f} s")
+        by_path["serve_manager"] = serve_manager_check(dev, qwen2_engine, qwen2_prompt)
+        del qwen2_engine
         for r in rows:
-            by_path = {"run_ours": run_ours_launches[r["name"]], "serve": serve_launches[r["name"]],
-                       "serve_mamba2": mamba2_launches[r["name"]]}
-            r["launches"] = sum(by_path.values())
-            r["launches_by_path"] = by_path
-        check(set(run_ours_launches) == {r["name"] for r in rows}, "a kernel has no row")
+            r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}
+            r["launches"] = sum(r["launches_by_path"].values())
+        check(set(by_path["run_ours"]) == {r["name"] for r in rows}, "a kernel has no row")
         print(f"      all phases passed in {time.perf_counter() - start:.0f} s")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

@@ -58,6 +58,37 @@ two routes is measured.  In bf16 this random-weight model is chaotic: one
 ulp moved anywhere in a layer moves its logits by tenths, so the same run
 in float32 (``f32_*``: the prompt, then 32 new tokens) is recorded beside
 it, for a tight comparison.  It takes about 9 minutes and 4 GB on a CPU.
+
+    PYTHONPATH=src python scripts/export_torch_reference.py --train
+
+writes ``experiments/torch/train_hotspot_ref.npz`` instead: the JAX
+package's fine-tuned ``run_ours`` (``TrainConfig()``: groups of 2,048,
+3 epochs of batches of 256, lr 3e-3; ``CONFIG``) on Hotspot at scale 1.0
+and 150% oversubscription, started from ``pretrain_paper.npz``'s table with
+every slot's optimizer moments unset (``opt_state=None``; each slot keeps
+its ``step``), because the npz carries no moments and the port's table
+from it has none: its stats, top-1, prediction count, per-group accuracy,
+gates and patterns.  Beside it, the run's third fine-tune call (the
+first on slot 3, whose entry is then the npz slot itself with fresh
+moments and ``prev_params`` equal to its params, and whose group has 1,824
+of 2,048 samples flagged E∪T): the group's features, flags and
+``n_active``, each of its 24 steps' loss and gradient global norm (before
+clipping), taken step by step with the package's own jitted
+``train_step`` (equal to the scanned ``train_group`` to the last bit,
+checked), and the final params (632,066 float32).  It takes about 2.5
+minutes on a CPU and writes 2.4 MB.
+
+    PYTHONPATH=src python scripts/export_torch_reference.py --serve-manager
+
+writes ``experiments/torch/serve_manager_ref.npz`` instead: the JAX
+package's ``LearnedOffloadManager`` (the ``manager`` offload kind: a fresh
+``SMOKE`` manager, one epoch of batches of 32 per group of 64 touches) fed
+the page-mass and touched-page stream that ``serve_qwen2_ref.npz`` recorded
+(32 pages, 16 resident, 256 steps), so no LM runs: its stats, every
+observed batch's prefetch blocks, pattern and accuracy, and the initial
+params of all 8 slots its table could draw (``jax.random.key(s)``), which
+the port, whose fresh slots draw from ``torch.Generator``s, starts from.
+It takes about 15 seconds on a CPU and writes 0.3 MB.
 """
 from __future__ import annotations
 
@@ -72,12 +103,14 @@ GROUP = 2048
 CUT_GROUPS = 8
 
 
-def _frozen_run(trace, table, oversub: float) -> dict:
+def _recorded_run(trace, table, oversub: float, tcfg=None) -> dict:
+    """One JAX ``run_ours`` at ``CONFIG`` (frozen unless ``tcfg`` trains),
+    with its results and each group's gate and pattern."""
     from repro.configs.predictor_paper import CONFIG
     from repro.core.incremental import TrainConfig
     from repro.uvm import runtime as R
 
-    tcfg = TrainConfig(group_size=GROUP, epochs=0, batch_size=256)
+    tcfg = tcfg or TrainConfig(group_size=GROUP, epochs=0, batch_size=256)
     mgr = R.manager_for(trace, CONFIG, tcfg, oversubscription=oversub, table=table)
     gates, patterns, streamed = [], [], 0
     observe = mgr.observe
@@ -296,12 +329,198 @@ def export_serve() -> None:
                       "first_tokens": ref["tokens"][:, :8].tolist(), "seconds": float(ref["seconds"])}))
 
 
+TRAIN = {"benchmark": "Hotspot", "scale": 1.0, "oversubscription": 1.5, "group_call": 2,
+         "train": {"group_size": 2048, "epochs": 3, "batch_size": 256, "lr": 3e-3}}
+
+
+def _npz_table(trainer):
+    """The JAX model table of ``pretrain_paper.npz`` with every slot's
+    optimizer moments unset (``opt_state=None``), each keeping its ``step``."""
+    import jax.numpy as jnp
+
+    from repro.core.model_table import Entry, ModelTable
+    from repro_torch import convert
+
+    blob = convert.blob_from_npz(OUT / "pretrain_paper.npz")
+    table = ModelTable(lambda s: trainer.new_params(s), n_slots=blob["n_slots"])
+    for s, e in blob["slots"].items():
+        table.slots[s] = Entry(params={k: jnp.asarray(v) for k, v in e["params"].items()}, step=e["step"],
+                               n_updates=e["n_updates"], last_acc=e["last_acc"])
+    return table, blob
+
+
+def _train_steps(trainer, entry, fs, n_active: int, in_et, use_lucir: bool, rng) -> tuple[dict, list, list]:
+    """``Trainer.train_group``'s steps one by one with the JAX package's own
+    jitted ``train_step``, recording each step's loss and the global norm of
+    its gradient before clipping."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.core import losses
+    from repro.optim import adamw
+
+    pcfg = trainer.pcfg
+    idx_mat, _, n_steps = trainer._train_schedule(len(fs), rng)
+    feats, labels = trainer._stage(fs)
+    et = trainer._stage_et(in_et, len(fs))
+    use_l = use_lucir and entry.prev_params is not None
+    params = entry.params
+    opt = entry.opt_state if entry.opt_state is not None else trainer.opt.init(params)
+
+    def lf(p, batch, lab, f_old, bet):
+        logits, f = trainer.forward(p, batch)
+        return losses.total_loss(logits, f, lab, n_active=n_active, f_old=f_old,
+                                 in_et=None if in_et is None else bet, lam=pcfg.lucir_lambda, mu=pcfg.thrash_mu)[0]
+
+    gnorm = jax.jit(lambda *a: adamw.global_norm(jax.grad(lf)(*a)))
+    step_loss, step_gnorm = [], []
+    for i in range(n_steps):
+        idx = jnp.asarray(idx_mat[i])
+        batch = {k: v[idx] for k, v in feats.items()}
+        f_old = trainer.forward(entry.prev_params, batch)[1] if use_l else None
+        bet = et[idx] if in_et is not None else jnp.zeros((idx.shape[0],), bool)
+        step_gnorm.append(float(gnorm(params, batch, labels[idx], f_old, bet)))
+        params, opt, metrics = trainer._train_step(
+            params, opt, batch, labels[idx], n_active, jnp.asarray(entry.step + i, jnp.int32),
+            f_old if use_l else jnp.zeros((idx.shape[0], pcfg.d_model)), bet,
+            use_lucir=use_l, use_thrash=in_et is not None)
+        step_loss.append(float(metrics["total"]))
+    return {k: np.asarray(v) for k, v in params.items()}, step_loss, step_gnorm
+
+
+def export_train() -> None:
+    """The fine-tuned Hotspot run and one of its fine-tune groups (see the
+    module docstring)."""
+    import time
+
+    import numpy as np
+
+    from repro.configs.predictor_paper import CONFIG
+    from repro.core.incremental import TrainConfig, Trainer
+    from repro.uvm import trace as T
+
+    t0 = time.perf_counter()
+    tcfg = TrainConfig(**TRAIN["train"])
+    trainer = Trainer(CONFIG, tcfg)
+    trace = T.get_trace(TRAIN["benchmark"], TRAIN["scale"])
+    table, blob = _npz_table(trainer)
+    calls = []
+    train_group = Trainer.train_group
+
+    def recording(self, entry, fs, n_active, *, in_et=None, use_lucir=False, rng=None):
+        call = None
+        if len(calls) == TRAIN["group_call"]:  # the entry before it trains, and its inputs
+            slot = next(s for s, e in table.slots.items() if e is entry)
+            same = lambda a, b: all(np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in b)
+            call = {"slot": slot, "step": entry.step, "fresh_moments": entry.opt_state is None,
+                    "params_are_npz": same(entry.params, blob["slots"][slot]["params"]),
+                    "prev_is_params": entry.prev_params is not None and same(entry.prev_params, entry.params),
+                    "fs": fs, "n_active": int(n_active), "use_lucir": use_lucir,
+                    "in_et": None if in_et is None else np.asarray(in_et, bool)}
+        calls.append(call)
+        return train_group(self, entry, fs, n_active, in_et=in_et, use_lucir=use_lucir, rng=rng)
+
+    Trainer.train_group = recording
+    try:
+        run = _recorded_run(trace, table, TRAIN["oversubscription"], tcfg)
+    finally:
+        Trainer.train_group = train_group
+    run_s = time.perf_counter() - t0
+    g = calls[TRAIN["group_call"]]
+    assert g["params_are_npz"] and g["prev_is_params"] and g["fresh_moments"] and g["in_et"] is not None, \
+        "the recorded group does not start from the npz slot's params with fresh moments"
+    # the recorded group again, step by step, from the npz slot (prev_params = params, as snapshot_prev leaves it)
+    from repro.core.model_table import Entry
+
+    import jax.numpy as jnp
+    start = {k: jnp.asarray(v) for k, v in blob["slots"][g["slot"]]["params"].items()}
+    entry = Entry(params=start, prev_params=start, step=g["step"])
+    final, step_loss, step_gnorm = _train_steps(trainer, entry, g["fs"], g["n_active"], g["in_et"], g["use_lucir"],
+                                                np.random.default_rng(tcfg.seed))
+    scanned = trainer.train_group(Entry(params=start, prev_params=start, step=g["step"]), g["fs"], g["n_active"],
+                                  in_et=g["in_et"], use_lucir=g["use_lucir"])
+    scan_gap = max(float(np.abs(np.asarray(scanned.params[k]) - v).max()) for k, v in final.items())
+    fs = g["fs"]
+    meta = {**TRAIN, "slot": g["slot"], "step": g["step"], "n_active": g["n_active"], "use_lucir": g["use_lucir"],
+            "n_steps": len(step_loss), "n_in_et": int(g["in_et"].sum()), "step_by_step_vs_scan_max_abs": scan_gap,
+            "run": {k: run[k] for k in ("stats", "top1", "n_predictions", "n_groups", "n_gate_open", "patterns",
+                                         "ipc")},
+            "run_seconds": run_s, "seconds": time.perf_counter() - t0}
+    arrays = {f"group/{f}": np.asarray(getattr(fs, f)) for f in ("page", "delta", "pc", "tb", "label", "label_page",
+                                                                  "t_index")}
+    arrays.update({f"final/{k}": v.astype(np.float32) for k, v in final.items()})
+    np.savez_compressed(OUT / "train_hotspot_ref.npz", run=np.array(json.dumps(meta)), in_et=g["in_et"],
+                        step_loss=np.array(step_loss, np.float32), step_grad_norm=np.array(step_gnorm, np.float32),
+                        per_group_acc=np.array(run["per_group_acc"], np.float64), **arrays)
+    print(json.dumps({k: v for k, v in meta.items()}))
+
+
+def export_serve_manager() -> None:
+    """The JAX ``LearnedOffloadManager`` fed the recorded qwen2 stream, and
+    its fresh slots (see the module docstring)."""
+    import dataclasses
+    import time
+
+    import numpy as np
+
+    from repro.configs.predictor_paper import SMOKE
+    from repro.core.incremental import TrainConfig, Trainer
+    from repro.serving.offload import LearnedOffloadManager
+
+    t0 = time.perf_counter()
+    with np.load(OUT / "serve_qwen2_ref.npz") as z:
+        masses, touched = z["page_mass"], z["touched"]
+        n_pages, cap = int(z["n_pages"]), int(z["capacity"])
+    m = LearnedOffloadManager(n_pages, cap)
+    prefetched, batches = [], []
+    observe = m._observe_batch
+
+    def recording():
+        before = m.stats.prefetches
+        observe()
+        a = m.last_actions
+        prefetched.append(np.asarray(a.prefetch_blocks, np.int64))
+        batches.append((int(a.pattern), -1.0 if a.accuracy is None else float(a.accuracy), m.stats.prefetches - before))
+
+    m._observe_batch = recording
+    for mass, t in zip(masses, touched):
+        m.on_attention(mass, np.nonzero(t)[0])
+    mgr = m.manager
+    tc = mgr.cfg.train
+    assert (tc.group_size, tc.epochs, tc.batch_size) == (64, 1, 32) and mgr.cfg.predictor == SMOKE
+    # every slot the manager could reach, as its table's init_fn draws it
+    init = Trainer(SMOKE, TrainConfig()).new_params
+    arrays = {f"init/slot{s}/{k}": np.asarray(v, np.float32) for s in range(tc.table_slots)
+              for k, v in init(s).items()}
+    stats = dataclasses.asdict(m.stats)
+    meta = {"n_pages": n_pages, "capacity": cap, "stats": stats, "n_batches": len(batches),
+            "slots_used": sorted(mgr.table.slots), "top1": mgr.top1, "n_predictions": mgr.n_predictions,
+            "seconds": time.perf_counter() - t0}
+    np.savez_compressed(OUT / "serve_manager_ref.npz", run=np.array(json.dumps(meta)),
+                        prefetch_blocks=np.concatenate(prefetched or [np.zeros(0, np.int64)]),
+                        prefetch_offsets=np.cumsum([0] + [len(p) for p in prefetched]),
+                        batch_pattern=np.array([b[0] for b in batches], np.int32),
+                        batch_accuracy=np.array([b[1] for b in batches], np.float64),
+                        batch_prefetched=np.array([b[2] for b in batches], np.int32),
+                        per_group_acc=np.array(mgr.per_group, np.float64), **arrays)
+    print(json.dumps(meta))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cache-dir", default=None, help="memoise the pretraining in this directory")
     ap.add_argument("--serve", action="store_true", help="write serve_qwen2_ref.npz (and nothing else)")
     ap.add_argument("--serve-mamba2", action="store_true", help="write serve_mamba2_ref.npz (and nothing else)")
+    ap.add_argument("--train", action="store_true", help="write train_hotspot_ref.npz (and nothing else)")
+    ap.add_argument("--serve-manager", action="store_true", help="write serve_manager_ref.npz (and nothing else)")
     args = ap.parse_args()
+    if args.train:
+        export_train()
+        return
+    if args.serve_manager:
+        export_serve_manager()
+        return
     if args.serve:
         export_serve()
         return
@@ -334,8 +553,8 @@ def main() -> None:
     ref = {
         "benchmark": "Hotspot", "scale": 1.0, "oversubscription": 1.5,
         "train": {"group_size": GROUP, "epochs": 0, "batch_size": 256},
-        "full": _frozen_run(trace, table.clone(), 1.5),
-        f"first_{CUT_GROUPS}_groups": _frozen_run(trace.slice(0, CUT_GROUPS * GROUP), table.clone(), 1.5),
+        "full": _recorded_run(trace, table.clone(), 1.5),
+        f"first_{CUT_GROUPS}_groups": _recorded_run(trace.slice(0, CUT_GROUPS * GROUP), table.clone(), 1.5),
     }
     (OUT / "hotspot_paper_ref.json").write_text(json.dumps(ref, indent=1) + "\n")
     print(json.dumps({k: ref["full"][k] for k in ("stats", "top1", "n_gate_open", "patterns")}))

@@ -21,7 +21,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("evict_select.cu", "freq_table.cu", "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu")
+SOURCES = ("evict_select.cu", "freq_table.cu", "flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu",
+           "ssd_scan.cu", "thrash_ce.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -34,10 +35,13 @@ _SIGNATURES = {
     "repro_freq_lookup": (_P, _P, _P, _P, _I, _I, _P),
     "repro_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "repro_flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "repro_flash_attention_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "repro_decode_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "repro_decode_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "repro_ssd_scan_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "repro_ssd_scan_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "repro_thrash_ce_fwd_f32": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "repro_thrash_ce_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
 }
 
 

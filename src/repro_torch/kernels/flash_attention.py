@@ -1,14 +1,22 @@
-"""Grouped-query attention forward (causal + ``q_offset`` + scalar ``kv_len``).
+"""Grouped-query attention (causal + ``q_offset`` + scalar ``kv_len``),
+forward and, in float32, backward.
 
 Port of ``repro.kernels.flash_attention`` (TPU kernel ``_fa_kernel``,
-``src/repro/kernels/flash_attention/kernel.py:28``).  CUDA kernel:
-``src/repro_torch/csrc/flash_attention.cu`` (float32 and bf16, head widths
-8, 16, 32, 64 and 128).
+``src/repro/kernels/flash_attention/kernel.py:28``).  CUDA kernels:
+``src/repro_torch/csrc/flash_attention.cu`` (the forward, float32 and bf16,
+head widths 8, 16, 32, 64 and 128) and ``src/repro_torch/csrc/
+flash_attention_bwd.cu`` (the float32 backward: dQ, dK and dV).
 
 The plain version is the JAX package's ``_attend_chunked``: an online
 softmax over KV chunks of ``ATTN_KV_CHUNK`` keys with its rounding points:
 ``q * scale`` in q's dtype, float32 scores, softmax and accumulator, ``p``
-cast to q's dtype before the PV product, the output in q's dtype.
+cast to q's dtype before the PV product, the output in q's dtype.  Its
+gradient is autograd's through it (:func:`attention_grads_plain`), which is
+what the JAX trainer differentiates.
+
+On CUDA tensors that need a gradient, :func:`flash_attention` is an
+autograd function: the forward kernel, then the backward kernel (float32
+only; bf16 with a gradient raises).
 """
 from __future__ import annotations
 
@@ -24,6 +32,9 @@ _MAX_GROUP = 128
 # launcher and launch-count name per element type
 _ENTRY = {torch.float32: ("repro_flash_attention_f32", "flash_attention"),
           torch.bfloat16: ("repro_flash_attention_bf16", "flash_attention_bf16")}
+# the backward kernel holds a head's whole problem in shared memory: q and
+# dO rows (S * G), k and v rows (T) and two (S * G, T) tiles, float32
+BWD_SMEM_BYTES = 232448
 
 
 def scale_for(D: int, dtype: torch.dtype) -> float:
@@ -81,16 +92,86 @@ def _check(q, k, v) -> None:
         raise ValueError("q, k and v must be on one device")
 
 
+def _launch_forward(q, k, v, causal, q_offset, kv_len):
+    B, S, K, G, D = q.shape
+    T = k.shape[1]
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn, count = _ENTRY[q.dtype]
+    LIBRARY.call(fn, ptr(q), ptr(k), ptr(v), ptr(out), B, S, T, K, G, D, int(causal), int(q_offset),
+                 T if kv_len is None else int(kv_len), scale_for(D, q.dtype), stream_handle(q.device))
+    LAUNCHES[count] += 1
+    return out
+
+
+def bwd_smem_bytes(S: int, T: int, G: int, D: int) -> int:
+    return 4 * (2 * S * G * D + 2 * T * D + 2 * S * G * T)
+
+
+def flash_attention_bwd(q, k, v, do, *, causal=True, q_offset: int = 0, kv_len: int | None = None):
+    """dQ, dK, dV of :func:`flash_attention` for float32 CUDA tensors (the
+    backward kernel), given the output gradient ``do`` (B,S,K,G,D)."""
+    _check(q, k, v)
+    B, S, K, G, D = q.shape
+    T = k.shape[1]
+    if q.device.type != "cuda":
+        raise ValueError(f"the attention backward kernel runs on cuda tensors, not {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"the attention backward kernel takes contiguous float32 tensors; {name} is "
+                             f"{t.dtype}{'' if t.is_contiguous() else ', not contiguous'}")
+    if do.shape != q.shape or do.device != q.device:
+        raise ValueError(f"do {tuple(do.shape)} must be shaped and placed as q {tuple(q.shape)}")
+    if D not in _HEAD_DIMS or bwd_smem_bytes(S, T, G, D) > BWD_SMEM_BYTES:
+        raise ValueError(f"the attention backward kernel takes head widths {_HEAD_DIMS} and a head's q, k, v, dO "
+                         f"and (S*G, T) tiles within {BWD_SMEM_BYTES} bytes of shared memory; got S={S}, T={T}, "
+                         f"G={G}, D={D}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    LIBRARY.call("repro_flash_attention_bwd_f32", ptr(q), ptr(k), ptr(v), ptr(do), ptr(dq), ptr(dk), ptr(dv),
+                 B, S, T, K, G, D, int(causal), int(q_offset), T if kv_len is None else int(kv_len),
+                 scale_for(D, q.dtype), stream_handle(q.device))
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def attention_grads_plain(q, k, v, do, *, causal=True, q_offset: int = 0, kv_len: int | None = None):
+    """dQ, dK, dV of the plain version: autograd through :func:`attend_chunked`."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = attend_chunked(qq, kk, vv, q_offset=q_offset, causal=causal, kv_len=kv_len)
+        return torch.autograd.grad(out, (qq, kk, vv), do)
+
+
+class _FlashAttentionF32(torch.autograd.Function):
+    """The float32 forward kernel with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, kv_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, q_offset, kv_len)
+        return _launch_forward(q, k, v, causal, q_offset, kv_len)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        causal, q_offset, kv_len = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, do.contiguous(), causal=causal, q_offset=q_offset, kv_len=kv_len)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, q_offset: int = 0, kv_len: int | None = None):
-    """q: (B,S,K,G,D); k, v: (B,T,K,D); returns (B,S,K,G,D).  The kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    """q: (B,S,K,G,D); k, v: (B,T,K,D); returns (B,S,K,G,D).  The kernels
+    for CUDA tensors (with the backward kernel as the gradient when one is
+    needed), the plain version for CPU tensors."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return attend_chunked(q, k, v, q_offset=q_offset, causal=causal, kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, not {q.device}")
-    B, S, K, G, D = q.shape
-    T = k.shape[1]
+    D, G = q.shape[4], q.shape[3]
     if q.dtype not in _ENTRY:
         raise ValueError(f"the CUDA kernel takes float32 or bfloat16, not {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -100,11 +181,11 @@ def flash_attention(q, k, v, *, causal=True, q_offset: int = 0, kv_len: int | No
     if D not in _HEAD_DIMS or G > _MAX_GROUP:
         raise ValueError(f"the CUDA kernel takes head widths {_HEAD_DIMS} and groups <= {_MAX_GROUP}; "
                          f"got D={D}, G={G}")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    fn, count = _ENTRY[q.dtype]
-    LIBRARY.call(fn, ptr(q), ptr(k), ptr(v), ptr(out), B, S, T, K, G, D, int(causal), int(q_offset),
-                 T if kv_len is None else int(kv_len), scale_for(D, q.dtype), stream_handle(q.device))
-    LAUNCHES[count] += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if q.dtype != torch.float32:
+            raise ValueError(f"the attention backward kernel is float32 only; {q.dtype} with a gradient")
+        if bwd_smem_bytes(q.shape[1], k.shape[1], G, D) > BWD_SMEM_BYTES:
+            raise ValueError(f"the attention backward kernel holds a head's tiles in {BWD_SMEM_BYTES} bytes of "
+                             f"shared memory: S={q.shape[1]}, T={k.shape[1]}, G={G}, D={D} do not fit")
+        return _FlashAttentionF32.apply(q, k, v, causal, q_offset, kv_len)
+    return _launch_forward(q, k, v, causal, q_offset, kv_len)

@@ -9,8 +9,9 @@ card).  The weights (``lm.init``) and the prompt come from
 ``torch.Generator``s seeded with ``--seed`` and ``--seed + 1``; their
 numbers differ from ``jax.random``'s, so the tokens differ from the
 reference script's.  The output is the same JSON object.  ``--offload
-manager`` fine-tunes a predictor and waits for the training slice: it
-raises ``NotImplementedError``.
+manager`` runs the full streaming manager, which fine-tunes its ``SMOKE``
+predictor on the KV touch stream (the attention backward and ``thrash_ce``
+kernels on the card).
 
 ``--arch mamba2-370m`` (the ssm family) runs too; it has no KV cache, so
 ``--offload`` builds no manager and ``"offload"`` is null, as in the

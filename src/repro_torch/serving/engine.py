@@ -31,12 +31,13 @@ from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.models import params as prm
 from repro_torch.serving.kv_cache import PAGE_TOKENS
-from repro_torch.serving.offload import KVOffloadManager, LRUOffloadManager
+from repro_torch.serving.offload import KVOffloadManager, LearnedOffloadManager, LRUOffloadManager
 
 #: offload manager per --offload kind: "lru" (baseline), "learned"
-#: (attention-mass EMA driving the paper's policy engine).  The reference's
-#: "manager" kind fine-tunes a predictor and waits for the training slice.
-OFFLOAD_KINDS = {"lru": LRUOffloadManager, "learned": KVOffloadManager}
+#: (attention-mass EMA driving the paper's policy engine), "manager" (the
+#: full streaming OversubscriptionManager: classifier + per-pattern
+#: predictor, fine-tuned on the KV touch stream + policy engine)
+OFFLOAD_KINDS = {"lru": LRUOffloadManager, "learned": KVOffloadManager, "manager": LearnedOffloadManager}
 #: the families with a KV cache, the only ones the reference offloads
 KV_FAMILIES = ("dense", "moe", "vlm", "encdec")
 
@@ -56,9 +57,6 @@ class ServeResult:
 class Engine:
     def __init__(self, cfg: ModelConfig, params, *, offload: str | None = None, hbm_fraction: float = 0.5,
                  device: str | torch.device = "cuda"):
-        if offload == "manager":
-            raise NotImplementedError("offload='manager' (LearnedOffloadManager) fine-tunes a predictor on "
-                                      "the KV touch stream; it waits for the training slice (ROADMAP A2)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = prm.cast_tree({k: _tensor(v, self.device) for k, v in params.items()},

@@ -1,5 +1,5 @@
-"""The paper's online loop end to end, on one device (port of the serving
-half of ``repro.uvm.runtime``).  Per group of accesses:
+"""The paper's online loop end to end, on one device (port of the
+single-tenant half of ``repro.uvm.runtime``).  Per group of accesses:
 
   1. ``manager.observe(FaultBatch)`` — classify the group, predict each
      access's next page delta with the pattern's model (strictly before
@@ -9,14 +9,16 @@ half of ``repro.uvm.runtime``).  Per group of accesses:
      ``learned`` eviction keys and stage the prefetches
   3. ``simulator.run_segment`` — demand migration + learned eviction
   4. ``manager.feedback(Outcomes)`` — advance the flush cadence and
-     fine-tune; only the frozen case (``TrainConfig.epochs == 0``) is
-     ported, training is the next slice (ROADMAP.md)
+     fine-tune the pattern's model on the group (CE + LUCIR + the
+     thrashing term, AdamW; ``TrainConfig.epochs == 0`` freezes it)
 
 Model, frequency table and simulator state live on the device (``"cuda"``
 unless the caller passes ``device="cpu"``).  Pretrained tables come from
 the JAX package's memo pickles (:func:`load_pretrain_memo`) or from the
 ``.npz`` written by ``scripts/export_torch_reference.py``
-(:func:`load_pretrained`).
+(:func:`load_pretrained`), or are trained here by :func:`pretrain_table`
+(Section V-A; the JAX package memoises its result on disk, the port does
+not).
 """
 from __future__ import annotations
 
@@ -31,8 +33,10 @@ import torch
 
 from repro_torch import convert
 from repro_torch.configs.predictor_paper import PredictorConfig
-from repro_torch.core.incremental import TrainConfig
+from repro_torch.core.features import DeltaVocab, FeatureStream
+from repro_torch.core.incremental import TrainConfig, Trainer
 from repro_torch.core.model_table import ModelTable
+from repro_torch.core.pattern import PatternClassifier
 from repro_torch.device import resolve_device
 from repro_torch.optim.adamw import OptState
 from repro_torch.uvm import simulator as S
@@ -110,6 +114,53 @@ def load_pretrained(path: str | Path, pcfg: PredictorConfig, device: str | torch
     if Path(path).suffix == ".npz":
         return convert.table_from_blob(convert.blob_from_npz(path), pcfg, device)
     return load_pretrain_memo(path, pcfg, device)
+
+
+def pretrain_table(
+    corpus: list[Trace],
+    pcfg: PredictorConfig,
+    tcfg: TrainConfig,
+    *,
+    kind: str = "transformer",
+    target_acc: float = 0.85,
+    max_rounds: int = 4,
+    device: str | torch.device = "cuda",
+) -> ModelTable:
+    """Section V-A: build a per-pattern corpus from (different-input) runs of
+    benchmarks and pre-train each pattern's model until accuracy is
+    reasonable, to hide the initial training latency.  Each trace's first
+    half is cut into groups; every round evaluates and then fine-tunes each
+    group's pattern model, until the mean corpus accuracy reaches
+    ``target_acc`` or ``max_rounds`` rounds have run."""
+    trainer = Trainer(pcfg, tcfg, kind, device)
+    table = ModelTable(lambda s: trainer.new_params(s), n_slots=tcfg.table_slots)
+    classifier = PatternClassifier()
+    groups = []  # (pattern, FeatureSet, n_active)
+    for tr in corpus:
+        vocab = DeltaVocab(pcfg.delta_vocab)
+        stream = FeatureStream(tr, vocab, pcfg.history, page_vocab=pcfg.page_vocab, pc_vocab=pcfg.pc_vocab,
+                               tb_vocab=pcfg.tb_vocab)
+        half = len(tr) // 2
+        for g0 in range(0, half, tcfg.group_size):
+            g1 = min(g0 + tcfg.group_size, half)
+            fs = stream.windows(g0, g1)
+            if len(fs):
+                pat = classifier.classify(tr.block[g0:g1], tr.kernel[g0:g1])
+                groups.append((pat, fs, max(vocab.n_classes, 2)))
+    for _ in range(max_rounds):
+        accs = []
+        for pat, fs, n_active in groups:
+            entry = table.get(pat)
+            corr, _ = trainer.evaluate(entry.params, fs, n_active)
+            accs.append(corr.mean())
+            # corpus accuracy seeds the prefetch gate CONSERVATIVELY: transfer
+            # to an unseen trace is unproven until measured on it
+            entry.last_acc = min(float(corr.mean()), 0.5)
+            entry = trainer.train_group(entry, fs, n_active)
+            table.put(pat, entry)
+        if accs and float(np.mean(accs)) >= target_acc:
+            break
+    return table
 
 
 def _manager_config(trace: Trace, pcfg: PredictorConfig, tcfg: TrainConfig, *, oversubscription: float,

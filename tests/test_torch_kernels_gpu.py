@@ -247,3 +247,111 @@ def test_ssd_scan_rejects_what_the_kernel_does_not_take(dev):
     b48 = torch.zeros(1, 64, 48, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # state width not built
         SS.ssd_scan(x, dt, A_log, b48, b48, chunk=16)
+
+
+# the limits of chip_smoke.py (THRASH_LOSS_TOL, THRASH_GRAD_TOL, ATTN_BWD_TOL), whose comments give the reasons
+THRASH_LOSS_TOL, THRASH_GRAD_TOL = (1e-5, 1e-6), (1e-5, 1e-9)
+ATTN_BWD_TOL = (1e-4, 1e-5)
+
+
+def _thrash_inputs(dev, B, V, n_active, seed):
+    rng = np.random.default_rng(seed)
+    logits = torch.tensor((3 * rng.standard_normal((B, V))).astype(np.float32), device=dev)
+    labels = torch.tensor(rng.integers(0, n_active, B).astype(np.int32), device=dev)
+    et = torch.tensor(rng.random(B) < 0.3, device=dev)
+    return logits, labels, et
+
+
+def _thrash_loss_and_grad(fn, logits, *args):
+    lg = logits.clone().requires_grad_(True)
+    loss = fn(lg, *args)
+    (g,) = torch.autograd.grad(loss, lg)
+    return loss.detach(), g
+
+
+def _thrash_close(got, want) -> bool:
+    return (torch.allclose(got[0], want[0], rtol=THRASH_LOSS_TOL[0], atol=THRASH_LOSS_TOL[1])
+            and torch.allclose(got[1], want[1], rtol=THRASH_GRAD_TOL[0], atol=THRASH_GRAD_TOL[1]))
+
+
+@pytest.mark.parametrize("B,V,n_active,mu", [(256, 1024, 700, 0.5), (256, 1024, 8, 1.6), (32, 32, 20, 0.5),
+                                             (128, 4096, 4000, 0.9), (1, 64, 64, 0.0)])
+def test_thrash_ce_forward_and_backward_match_plain(dev, B, V, n_active, mu):
+    from repro_torch.kernels import thrash_ce as TC
+
+    logits, labels, et = _thrash_inputs(dev, B, V, n_active, seed=B + V)
+    before = (kernels.LAUNCHES["thrash_ce_fwd"], kernels.LAUNCHES["thrash_ce_bwd"])
+    got = _thrash_loss_and_grad(TC.thrash_ce, logits, labels, et, n_active, mu)
+    assert (kernels.LAUNCHES["thrash_ce_fwd"], kernels.LAUNCHES["thrash_ce_bwd"]) == (before[0] + 1, before[1] + 1)
+    want = _thrash_loss_and_grad(TC.thrash_ce_plain, logits, labels, et, n_active, mu)
+    assert _thrash_close(got, want), (float(got[0]), float(want[0]), float((got[1] - want[1]).abs().max()))
+    assert bool((got[1][:, n_active:] == 0).all())
+
+
+@pytest.mark.parametrize("defect", ["no_mask", "no_weight"])
+@pytest.mark.parametrize("B,V,n_active", [(256, 1024, 700), (32, 32, 20)])
+def test_thrash_ce_limits_reject_a_defective_plain_version(dev, defect, B, V, n_active):
+    from repro_torch.kernels import thrash_ce as TC
+
+    logits, labels, et = _thrash_inputs(dev, B, V, n_active, seed=V)
+    bad = {"no_mask": lambda lg, lab, e, na, mu: TC.thrash_ce_plain(lg, lab, e, lg.shape[-1], mu),
+           "no_weight": lambda lg, lab, e, na, mu: TC.thrash_ce_plain(lg, lab, torch.zeros_like(e), na, mu)}[defect]
+    got = _thrash_loss_and_grad(TC.thrash_ce, logits, labels, et, n_active, 0.5)
+    assert not _thrash_close(got, _thrash_loss_and_grad(bad, logits, labels, et, n_active, 0.5))
+
+
+def _attn_bwd_inputs(dev, B, S, T, K, G, D, seed):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32), device=dev)
+    return mk(B, S, K, G, D), mk(B, T, K, D), mk(B, T, K, D), mk(B, S, K, G, D)
+
+
+def _attn_close(got, want) -> bool:
+    return all(torch.allclose(a, b, rtol=ATTN_BWD_TOL[0], atol=ATTN_BWD_TOL[1]) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((256, 10, 10, 2, 1, 32), {}),
+    ((256, 10, 10, 2, 1, 8), {}),
+    ((32, 10, 10, 2, 1, 8), {"kv_len": 6}),
+    ((4, 10, 10, 2, 1, 32), {"causal": False, "kv_len": 7}),
+    ((3, 37, 37, 2, 3, 64), {}),
+    ((2, 5, 70, 1, 2, 16), {"q_offset": 65}),
+    ((1, 64, 64, 1, 1, 128), {}),
+])
+def test_flash_attention_backward_matches_plain(dev, shape, kw):
+    q, k, v, do = _attn_bwd_inputs(dev, *shape, seed=sum(shape))
+    before = kernels.LAUNCHES["flash_attention_bwd"]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    FA.flash_attention(*leaves, **kw).backward(do)
+    assert kernels.LAUNCHES["flash_attention_bwd"] == before + 1
+    got = [t.grad for t in leaves]
+    assert _attn_close(got, FA.attention_grads_plain(q, k, v, do, **kw))
+
+
+def test_flash_attention_backward_limits_reject_a_dropped_causal_mask(dev):
+    q, k, v, do = _attn_bwd_inputs(dev, 256, 10, 10, 2, 1, 32, seed=1)
+    got = FA.flash_attention_bwd(q, k, v, do)
+    with torch.enable_grad():
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        out = (FA.attend_chunked(qq, kk, vv).detach() + FA.attend_chunked(qq, kk, vv, causal=False)
+               - FA.attend_chunked(qq, kk, vv, causal=False).detach())
+        bad = torch.autograd.grad(out, (qq, kk, vv), do)
+    assert not _attn_close(got, bad)
+
+
+def test_backward_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from repro_torch.kernels import thrash_ce as TC
+
+    q, k, v, _ = _attn_bwd_inputs(dev, 1, 600, 600, 1, 1, 32, seed=0)
+    with pytest.raises(ValueError, match="shared memory"):  # a head's tiles do not fit
+        FA.flash_attention(q.requires_grad_(True), k, v)
+    qb, kb, vb = (t.detach().bfloat16().requires_grad_(True) for t in _attn_bwd_inputs(dev, 1, 8, 8, 1, 1, 32, 0)[:3])
+    with pytest.raises(ValueError, match="float32 only"):
+        FA.flash_attention(qb, kb, vb)
+    logits, labels, et = _thrash_inputs(dev, 64, 32, 10, seed=0)
+    with pytest.raises(ValueError, match="float32"):
+        TC.thrash_ce(logits.bfloat16(), labels, et, 10)
+    with pytest.raises(ValueError, match="multiple"):
+        TC.thrash_ce(torch.zeros(200, 32, device=dev), torch.zeros(200, dtype=torch.int32, device=dev),
+                     torch.zeros(200, dtype=torch.bool, device=dev), 10)

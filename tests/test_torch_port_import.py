@@ -31,13 +31,14 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     out = subprocess.run([sys.executable, "-c", _CHILD], capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["modules"] >= 44
+    assert res["modules"] >= 46
     assert res["leaked"] == []
 
 
 _SERVE_CHILD = """
 import json, sys
 import repro_torch.launch.serve, repro_torch.serving.engine, repro_torch.models.mamba2, repro_torch.kernels.ssd_scan
+import repro_torch.core.losses, repro_torch.kernels.thrash_ce, repro_torch.optim.adamw, repro_torch.serving.offload
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
 print(json.dumps(leaked))
@@ -106,6 +107,18 @@ def test_entry_points_default_to_the_card():
         lm.init(0, LM_SMOKE)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         KVOffloadManager(4, 2)
+    # the training path: pretraining, the protocols, the manager offload
+    from repro_torch.core.incremental import run_protocol
+    from repro_torch.serving.offload import LearnedOffloadManager
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        R.pretrain_table([tr], SMOKE, TrainConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_protocol(tr, SMOKE, TrainConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LearnedOffloadManager(4, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--smoke", "--new-tokens", "2", "--offload", "manager"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PagedKV.create(1, 2, 1, 4, 1, 2)
     from repro_torch.configs.mamba2_370m import SMOKE as SSM_SMOKE
@@ -132,8 +145,8 @@ def test_unported_options_raise():
     from repro_torch.uvm import trace as T
     from repro_torch.uvm.manager import ManagerConfig, OversubscriptionManager
 
-    with pytest.raises(NotImplementedError, match="training"):
-        Trainer(SMOKE, TrainConfig(epochs=1), device="cpu").train_group(Entry(params={}), None, 2)
+    with pytest.raises(NotImplementedError, match="kind 'lstm'"):  # the baseline predictors of baselines_nn
+        Trainer(SMOKE, TrainConfig(epochs=1), kind="lstm", device="cpu").train_group(Entry(params={}), None, 2)
     with pytest.raises(NotImplementedError, match="health"):
         OversubscriptionManager(ManagerConfig(predictor=SMOKE, health=object()), device="cpu")
     with pytest.raises(NotImplementedError, match="freq_table"):

@@ -22,6 +22,7 @@ from repro_torch.launch import serve as PS
 from repro_torch.models import lm as PLM
 from repro_torch.models.params import numpy_params
 from repro_torch.serving import engine as PE
+from repro_torch.serving import offload as PO
 from repro_torch.serving.kv_cache import PAGE_TOKENS, PagedKV
 
 
@@ -96,12 +97,17 @@ def test_engine_generate_matches_jax(engines, kind):
 
 
 def test_engine_rejects_the_manager_offload_kind():
+    """The engine builds the ``manager`` kind (a ``LearnedOffloadManager``
+    on its device, ``tests/test_torch_train.py`` holds it against the JAX
+    package); what it still rejects are that kind's snapshot options,
+    which need the manager's snapshot store (not ported)."""
     cfg = PQ.SMOKE
     params = PLM.init(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        PE.Engine(cfg, params, offload="manager", device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        PS.main(["--smoke", "--device", "cpu", "--offload", "manager"])
+    mgr = PE.Engine(cfg, params, offload="manager", device="cpu").make_manager(96)
+    assert isinstance(mgr, PO.LearnedOffloadManager) and mgr.manager.device.type == "cpu"
+    for kw in ({"checkpoint_dir": "snapshots"}, {"checkpoint_every": 4}, {"resume": True}):
+        with pytest.raises(NotImplementedError, match="snapshot"):
+            PO.LearnedOffloadManager(4, 2, device="cpu", **kw)
 
 
 def test_serve_entry_point_prints_the_reference_keys(capsys):
