@@ -21,13 +21,14 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("evict_select.cu", "freq_table.cu", "flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu",
-           "ssd_scan.cu", "thrash_ce.cu")
+SOURCES = ("evict_select.cu", "freq_table.cu", "flash_attention.cu", "flash_attention_bf16.cu", "flash_attention_bwd.cu",
+           "decode_attention.cu", "ssd_scan.cu", "thrash_ce.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "repro_evict_select": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
@@ -36,8 +37,8 @@ _SIGNATURES = {
     "repro_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "repro_flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "repro_flash_attention_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-    "repro_decode_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-    "repro_decode_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    "repro_decode_attention_f32": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F, _P),
+    "repro_decode_attention_bf16": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F, _P),
     "repro_ssd_scan_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "repro_ssd_scan_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "repro_thrash_ce_fwd_f32": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
@@ -125,10 +126,9 @@ class KernelLibrary:
 
     def call(self, fn: str, *args) -> None:
         """Call one launcher; raise if it reports an error."""
-        lib = self.cdll()
-        code = getattr(lib, fn)(*args)
+        code = getattr(self._cdll or self.cdll(), fn)(*args)
         if code != 0:
-            msg = "unsupported shape" if code < 0 else lib.repro_error_string(code).decode()
+            msg = "unsupported shape" if code < 0 else self._cdll.repro_error_string(code).decode()
             raise RuntimeError(f"{fn} failed: {msg} (code {code})")
 
 
@@ -141,6 +141,11 @@ def ptr(t) -> int | None:
 
 
 def stream_handle(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device`` (a CUDA
+    device with its index, as a tensor's ``.device`` is).  Read straight
+    from PyTorch's C binding: ``torch.cuda.current_stream(device)`` builds
+    a Stream object each call, host time of the order of a decode
+    attention kernel's."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -4,7 +4,9 @@ Port of ``repro.kernels.decode_attention`` (TPU kernel
 ``decode_attention_kernelcall``,
 ``src/repro/kernels/decode_attention/kernel.py:59``).  CUDA kernel:
 ``src/repro_torch/csrc/decode_attention.cu`` (bf16 and float32, head widths
-16, 32, 64 and 128, at most 16 query heads per kv head and G * D <= 1024).
+16, 32, 64 and 128, at most 16 query heads per kv head and G * D <= 1024):
+a split-K flash-decode over chunks of ``CHUNK`` keys in two kernels, which
+one C call launches, with a float32 scratch the wrapper allocates.
 
 The plain version repeats the kernel's arithmetic: ``q * scale`` rounded to
 q's dtype, float32 scores, keys at or after ``kv_len`` set to -1e30, an
@@ -22,6 +24,7 @@ from repro_torch.kernels._lib import LIBRARY, ptr, stream_handle
 from repro_torch.kernels.flash_attention import scale_for
 
 DEFAULT_BK = 512
+CHUNK = 64  # keys per thread block of the kernels
 NEG = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GROUP = 16
@@ -51,6 +54,15 @@ def decode_attention_plain(q, k, v, kv_len: int, *, bk: int = DEFAULT_BK):
         acc = acc * alpha[..., None] + pv
         m = m_new
     return (acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype)
+
+
+def scratch_floats(B: int, T: int, K: int, G: int, D: int) -> int:
+    """Floats of scratch one kernel call needs (as ``scratch_floats`` in the
+    CUDA source): scores (B, K, G, T), chunk maxima (B, K, G, chunks),
+    partial P.V (B, K, chunks, G, D), partial l (B, K, chunks, G) and one
+    ticket per (batch, kv head)."""
+    BK, n = B * K, -(-T // CHUNK)
+    return BK * G * T + BK * G * n + BK * n * G * D + BK * n * G + BK
 
 
 def _check(q, k, v) -> None:
@@ -86,11 +98,14 @@ def decode_attention_kernelcall(q, k, v, kv_len: int):
     if D not in _HEAD_DIMS or G > _MAX_GROUP or G * D > _MAX_GD:
         raise ValueError(f"the CUDA kernel takes head widths {_HEAD_DIMS}, groups <= {_MAX_GROUP} and "
                          f"G * D <= {_MAX_GD}; got D={D}, G={G}")
+    if T == 0:
+        raise ValueError("the CUDA kernel takes a cache of at least one key; got T=0")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    LIBRARY.call(_LAUNCHERS[q.dtype], ptr(q), ptr(k), ptr(v), ptr(out), B, T, K, G, D, kv_len,
-                 scale_for(D, q.dtype), stream_handle(q.device))
+    scratch = torch.empty(scratch_floats(B, T, K, G, D), dtype=torch.float32, device=q.device)
+    LIBRARY.call(_LAUNCHERS[q.dtype], ptr(q), ptr(k), ptr(v), ptr(out), ptr(scratch), 4 * scratch.numel(), B, T,
+                 K, G, D, kv_len, scale_for(D, q.dtype), stream_handle(q.device))
     LAUNCHES["decode_attention"] += 1
     return out
 

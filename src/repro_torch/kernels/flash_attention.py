@@ -3,8 +3,10 @@ forward and, in float32, backward.
 
 Port of ``repro.kernels.flash_attention`` (TPU kernel ``_fa_kernel``,
 ``src/repro/kernels/flash_attention/kernel.py:28``).  CUDA kernels:
-``src/repro_torch/csrc/flash_attention.cu`` (the forward, float32 and bf16,
-head widths 8, 16, 32, 64 and 128) and ``src/repro_torch/csrc/
+``src/repro_torch/csrc/flash_attention.cu`` (the float32 forward, head
+widths 8, 16, 32, 64 and 128), ``src/repro_torch/csrc/
+flash_attention_bf16.cu`` (the bf16 forward on the tensor cores, head
+widths 16, 32, 64 and 128) and ``src/repro_torch/csrc/
 flash_attention_bwd.cu`` (the float32 backward: dQ, dK and dV).
 
 The plain version is the JAX package's ``_attend_chunked``: an online
@@ -20,6 +22,8 @@ only; bf16 with a gradient raises).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import LAUNCHES
@@ -27,16 +31,17 @@ from repro_torch.kernels._lib import LIBRARY, ptr, stream_handle
 
 # KV-chunk size of the plain version's online-softmax loop.
 ATTN_KV_CHUNK = 1024
-_HEAD_DIMS = (8, 16, 32, 64, 128)
 _MAX_GROUP = 128
-# launcher and launch-count name per element type
-_ENTRY = {torch.float32: ("repro_flash_attention_f32", "flash_attention"),
-          torch.bfloat16: ("repro_flash_attention_bf16", "flash_attention_bf16")}
+# launcher, launch-count name and head widths per element type
+_ENTRY = {torch.float32: ("repro_flash_attention_f32", "flash_attention", (8, 16, 32, 64, 128)),
+          torch.bfloat16: ("repro_flash_attention_bf16", "flash_attention_bf16", (16, 32, 64, 128))}
+_HEAD_DIMS = _ENTRY[torch.float32][2]  # the float32 backward's
 # the backward kernel holds a head's whole problem in shared memory: q and
 # dO rows (S * G), k and v rows (T) and two (S * G, T) tiles, float32
 BWD_SMEM_BYTES = 232448
 
 
+@functools.lru_cache(maxsize=None)
 def scale_for(D: int, dtype: torch.dtype) -> float:
     """``D ** -0.5`` rounded to ``dtype``: the reference multiplies q by the
     Python float, which JAX's weak typing first rounds to q's dtype."""
@@ -98,7 +103,7 @@ def _launch_forward(q, k, v, causal, q_offset, kv_len):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn, count = _ENTRY[q.dtype]
+    fn, count, _ = _ENTRY[q.dtype]
     LIBRARY.call(fn, ptr(q), ptr(k), ptr(v), ptr(out), B, S, T, K, G, D, int(causal), int(q_offset),
                  T if kv_len is None else int(kv_len), scale_for(D, q.dtype), stream_handle(q.device))
     LAUNCHES[count] += 1
@@ -178,9 +183,13 @@ def flash_attention(q, k, v, *, causal=True, q_offset: int = 0, kv_len: int | No
         if t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError(f"the CUDA kernel takes contiguous q, k and v of one dtype; {name} is "
                              f"{t.dtype}{'' if t.is_contiguous() else ', not contiguous'}")
-    if D not in _HEAD_DIMS or G > _MAX_GROUP:
-        raise ValueError(f"the CUDA kernel takes head widths {_HEAD_DIMS} and groups <= {_MAX_GROUP}; "
+    head_dims = _ENTRY[q.dtype][2]
+    if D not in head_dims or G > _MAX_GROUP:
+        raise ValueError(f"the {q.dtype} CUDA kernel takes head widths {head_dims} and groups <= {_MAX_GROUP}; "
                          f"got D={D}, G={G}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the bf16 CUDA kernel reads q, k and v with 16-byte loads; their storage must be 16-byte "
+                         "aligned")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         if q.dtype != torch.float32:
             raise ValueError(f"the attention backward kernel is float32 only; {q.dtype} with a gradient")
