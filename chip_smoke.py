@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-flash-bf16 LABEL
+    python3 chip_smoke.py --time-kernels LABEL
+    python3 chip_smoke.py --time-training LABEL
 
 Phases, in order; any failure exits non-zero:
 
@@ -23,7 +25,13 @@ Phases, in order; any failure exits non-zero:
               padded class, a dropped weight and a dropped causal mask),
               and time kernel, plain version and the library call
               (``scaled_dot_product_attention`` and its backward,
-              ``cross_entropy`` and its backward) with CUDA events.
+              ``cross_entropy`` and its backward) with CUDA events;
+              ``evict_select`` also at ``n_evict`` 64, ``thrash_ce`` also as
+              a training step (forward and backward through autograd)
+              against ``cross_entropy``'s, with one device kernel per
+              forward and per backward (read from the profiler), its
+              gradient from the saved row statistics equal bit for bit to
+              the recomputing backward kernel's, and bit-for-bit repeats.
 4. main     — the paper's online loop, ``repro_torch.uvm.runtime.run_ours``,
               on Hotspot at scale 1.0 and 150% oversubscription with the
               paper-width predictor (``CONFIG``), ``TrainConfig(2048, 0,
@@ -93,6 +101,17 @@ atol it needs at rtol 2^-7, three CUDA-event timings of 100 calls, the
 device time per call) and prints one line headed LABEL.  To compare two
 versions of the kernel, unpack the other checkout into a directory that
 ``.gitignore`` lists and run both from one command, in turns (A, B, B, A).
+
+With ``--time-kernels LABEL`` the script runs phases 1 and 2, then phase
+3's rows of ``evict_select``, ``freq_update``/``freq_lookup``, the float32
+``flash_attention`` forward and backward and ``thrash_ce`` (each time the
+median of five), the wrappers' host microseconds per step, and the SHA-256
+of ``thrash_ce``'s loss and gradient on phase 3's inputs, and prints them
+as one JSON line headed LABEL.  Copy this script into the other checkout so
+that both versions are timed by the same code, and run them in turns.
+``--time-training LABEL`` does the same for the training path: phase 7
+(a)'s fine-tune group five times and the fine-tuned ``run_ours`` once, host
+seconds per stage.
 """
 from __future__ import annotations
 
@@ -206,21 +225,30 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# timings per ``time_cuda`` call, of which it returns the median
+# (``--time-kernels`` takes 5: host-bound calls vary from one timing to the next)
+TIMING_REPEATS = 1
+
+
 def time_cuda(fn, iters: int, warmup: int = 10) -> float:
     """Milliseconds per call of ``fn`` on the current stream (CUDA events
-    around ``iters`` back-to-back calls, after a warm-up)."""
+    around ``iters`` back-to-back calls, after a warm-up; the median of
+    ``TIMING_REPEATS`` such timings)."""
     import torch
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    times = []
+    for _ in range(TIMING_REPEATS):
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / iters)
+    return sorted(times)[len(times) // 2]
 
 
 def device_times(prof) -> dict:
@@ -281,21 +309,36 @@ def launch_grids(prof, kernel: str) -> dict:
     return {sym: sorted(blocks) for sym, blocks in seen.items()}
 
 
+PROFILE_PAD_S = 0.02  # idle host seconds at each end of a profiled window of calls
+
+
+def profiled(fn, iters: int):
+    """A ``torch.profiler`` run (CUDA activity) of ``iters`` calls of ``fn``,
+    its window padded with ``PROFILE_PAD_S`` of idle host time at each end.
+    The profiler keeps only the device events whose time, converted to the
+    host's clock, falls inside its window; a window of a few short launches
+    (20 calls of 14 us) can lose every one of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    return prof
+
+
 def device_ms(fn, kernel: str, iters: int = 50, grids: dict | None = None) -> float | None:
     """Device time (ms) per call of ``fn`` spent in the port kernel
     ``kernel`` (every device symbol of it, matched by ``is_kernel``: a
     wrapper may launch several kernels per call), from ``torch.profiler``
     over ``iters`` calls; None if the profiler shows no device time for it.
     ``grids``, if given, receives ``launch_grids`` of the same run."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
+        prof = profiled(fn, iters)
     except Exception as exc:  # the profiler is a diagnostic here; the events time stands
         print(f"  (torch.profiler gave no device times: {exc!r})")
         return None
@@ -324,14 +367,14 @@ def kernel_evict_select(dev) -> dict:
     rng = np.random.default_rng(0)
     worst = 0
     n_cases = 0
-    for nb in (256, 512):
+    for nb in (1, 33, 256, 300, 512, 600):
         for n_keys in (1, 2, 3, 4):
             for trial in range(6):
                 cand = torch.tensor(rng.random(nb) < 0.6, device=dev)
                 keys = tuple(torch.tensor(rng.integers(-3, 3, nb, dtype=np.int32), device=dev)
                              for _ in range(n_keys))
                 n_cand = int(cand.sum())
-                for n in (0, 1, 2, 5, n_cand // 2, n_cand, n_cand + 7):
+                for n in (0, 1, 2, 5, 64, n_cand // 2, n_cand, n_cand + 7):
                     ne = torch.tensor(n, dtype=torch.int32, device=dev)
                     got = K.evict_select(cand, keys, ne)
                     want = K.evict_select_plain(cand, keys, ne)
@@ -339,7 +382,8 @@ def kernel_evict_select(dev) -> dict:
                     check(torch.equal(got, want), f"evict_select differs from plain at NB={nb}, keys={n_keys}, n={n}")
                     worst = max(worst, int((got.int() - want.int()).abs().max()))
                     n_cases += 1
-    print(f"  evict_select: {n_cases} cases at NB 256/512, 1-4 tied keys, n_evict 0..candidates+7: bit-exact")
+    print(f"  evict_select: {n_cases} cases at NB 1/33/256/300/512/600, 1-4 tied keys, n_evict 0..candidates+7: "
+          f"bit-exact")
     # timing at the main path's shape: NB 256, the learned policy's 3 keys, one victim
     nb = 256
     cand = torch.tensor(rng.random(nb) < 0.6, device=dev)
@@ -347,6 +391,8 @@ def kernel_evict_select(dev) -> dict:
             torch.tensor(rng.integers(-1, 64, nb, dtype=np.int32), device=dev),
             torch.tensor(rng.integers(0, 50000, nb, dtype=np.int32), device=dev))
     ne = torch.tensor(1, dtype=torch.int32, device=dev)
+    ne64 = torch.tensor(64, dtype=torch.int32, device=dev)  # a prefetch-heavy step's evictions
+    ne0 = torch.tensor(0, dtype=torch.int32, device=dev)  # most scan steps: nothing to evict
     ms = time_cuda(lambda: K.evict_select(cand, keys, ne), 500)
     plain_ms = time_cuda(lambda: K.evict_select_plain(cand, keys, ne), 200)
     nbytes = nb + 3 * 4 * nb + 4 + nb  # cand, keys, n_evict in; mask out
@@ -355,7 +401,10 @@ def kernel_evict_select(dev) -> dict:
             "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None,
             "device_ms": device_ms(lambda: K.evict_select(cand, keys, ne), "evict_select"),
-            "shape": f"NB {nb}, 3 keys, n_evict 1"}
+            "ms_n64": time_cuda(lambda: K.evict_select(cand, keys, ne64), 500),
+            "device_ms_n64": device_ms(lambda: K.evict_select(cand, keys, ne64), "evict_select"),
+            "device_ms_n0": device_ms(lambda: K.evict_select(cand, keys, ne0), "evict_select"),
+            "shape": f"NB {nb}, 3 keys, n_evict 1 (and 64: ms_n64, device_ms_n64; 0: device_ms_n0)"}
 
 
 def _freq_stream(rng, n: int, n_sets: int):
@@ -408,11 +457,15 @@ def kernel_freq_table(dev) -> list[dict]:
     skewed = torch.tensor(_freq_stream(rng, n, n_sets), device=dev)
     t0, c0 = tags.clone(), cnt.clone()
 
-    def upd(blocks):
+    def update_from_start(blocks):
+        # every timed update starts from the same table: two copies, then the kernel
         tags.copy_(t0)
         cnt.copy_(c0)
         K.freq_update(tags, cnt, blocks)
 
+    # the copies stay in the timed call ("ms" and "device_ms" time one
+    # workload, so "ms" cannot fall below "device_ms"); their own time is
+    # printed beside it, never subtracted
     copy_ms = time_cuda(lambda: (tags.copy_(t0), cnt.copy_(c0)), 200)
     # bytes the function must move on this stream: every way (int32 tag +
     # int32 counter) of each set the stream touches, read once (and written
@@ -423,15 +476,18 @@ def kernel_freq_table(dev) -> list[dict]:
     set_bytes = ways * 2 * 4
     update_bytes = 2 * np.unique(hb[hb >= 0] % n_sets).size * set_bytes + 4 * n
     lookup_bytes = np.unique(hb % n_sets).size * set_bytes + 4 * n + 4 * n
+    ms = time_cuda(lambda: update_from_start(hot), 200)
     upd = {"name": "freq_update", "route": "cuda", "source": "src/repro_torch/csrc/freq_table.cu",
            "replaces": "src/repro/kernels/freq_table/kernel.py:77", "max_abs_err": worst_u,
-           "ms": time_cuda(lambda: upd(hot), 200) - copy_ms,
+           "ms": ms, "copy_ms": copy_ms, "copy_share": copy_ms / ms,
            "plain_ms": time_cuda(lambda: K.freq_update_plain(t0, c0, hot), 20, warmup=3),
            "bound_ms": update_bytes / HBM_BYTES_PER_S * 1e3,
            "bound_by": "bytes", "library_ms": None,
-           "device_ms": device_ms(lambda: K.freq_update(tags, cnt, hot), "freq_update"),
-           "skewed_ms": time_cuda(lambda: upd(skewed), 200) - copy_ms,
-           "shape": f"{n_sets}x{ways} table, {n} blocks of one Hotspot group"}
+           "device_ms": device_ms(lambda: update_from_start(hot), "freq_update"),
+           "skewed_ms": time_cuda(lambda: update_from_start(skewed), 200),
+           "skewed_device_ms": device_ms(lambda: update_from_start(skewed), "freq_update"),
+           "shape": f"{n_sets}x{ways} table, {n} blocks of one Hotspot group, each update from the same table "
+                    f"(two table copies in every timed call)"}
     q = hot
     lk = {"name": "freq_lookup", "route": "cuda", "source": "src/repro_torch/csrc/freq_table.cu",
           "replaces": "src/repro/kernels/freq_table/kernel.py:125", "max_abs_err": worst_l,
@@ -580,6 +636,38 @@ def time_flash_bf16(dev, label: str) -> None:
     dev_ms = device_ms(lambda: K.flash_attention(q, k, v), "flash_attention_bf16", iters=50)
     print(f"{label}: atol needed {need:.4g}, ms/call {[round(x, 5) for x in ms]}, device ms/call {dev_ms} "
           f"({nvidia_smi_line()})")
+
+
+TIMED_KEYS = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "ms_n64", "device_ms_n64",
+              "device_ms_n0", "copy_ms", "copy_share", "skewed_ms", "skewed_device_ms", "device_ops_per_call",
+              "device_ms_all_ops", "step_ms", "step_library_ms", "step_device_ops_per_call", "step_device_ms_all_ops",
+              "loss_sha", "grad_sha")
+
+
+def time_kernels(dev, label: str) -> None:
+    """The ``--time-kernels`` run: phase 3's rows of the kernels of the
+    simulator and the training step, and the wrappers' host steps, for
+    comparing versions of them (each time the median of five)."""
+    global TIMING_REPEATS
+    TIMING_REPEATS = 5
+    rows = [kernel_evict_select(dev), *kernel_freq_table(dev), kernel_flash_attention(dev),
+            kernel_flash_attention_bwd(dev), *kernel_thrash_ce(dev)]
+    out = {r["name"]: {k: r[k] for k in TIMED_KEYS if k in r} for r in rows}
+    print(f"{label}: " + json.dumps({"rows": out, "host_us": wrapper_host_us(dev), "card": nvidia_smi_line()}))
+
+
+def time_training(dev, label: str) -> None:
+    """The ``--time-training`` run: phase 7 (a)'s fine-tune group five times
+    (host seconds of its 24 steps each) and the fine-tuned ``run_ours`` once
+    (host seconds per stage), for comparing versions of the training path."""
+    groups = [train_group_run(dev)["wall_s"] for _ in range(5)]
+    spent = {"observe": 0.0, "run_segment": 0.0, "train_group": 0.0}
+    t0 = time.perf_counter()
+    res = fine_tuned_run(dev, spent)
+    _sync(dev)
+    print(f"{label}: " + json.dumps({"group_24_steps_s": groups, "fine_tuned_wall_s": time.perf_counter() - t0,
+                                     "stage_s": spent, "stats": res.stats, "top1": res.top1,
+                                     "card": nvidia_smi_line()}))
 
 
 def kernel_decode_attention(dev) -> dict:
@@ -760,7 +848,7 @@ def _thrash_inputs(dev, B, V, n_active, seed):
     rng = np.random.default_rng(seed)
     logits = torch.tensor((3 * rng.standard_normal((B, V))).astype(np.float32), device=dev)
     labels = torch.tensor(rng.integers(0, n_active, B).astype(np.int32), device=dev)
-    et = torch.tensor(rng.random(B) < 0.3, device=dev)
+    et = torch.tensor((rng.random(B) < 0.3).astype(np.int32), device=dev)  # int32, as the trainer's flags
     return logits, labels, et
 
 
@@ -812,36 +900,171 @@ def kernel_thrash_ce(dev) -> list[dict]:
     logits, labels, et = _thrash_inputs(dev, B, V, n_active, seed=1)
     zero = torch.zeros_like(et)
     masked = torch.where(torch.arange(V, device=dev) >= n_active, torch.full_like(logits, -1e30), logits)
-    g = torch.ones((), device=dev)
+    labels64 = labels.long()
     # the library yardstick computes the in_et = 0 case on the masked logits
-    check(torch.allclose(F.cross_entropy(masked, labels.long()), K.thrash_ce_plain(logits, labels, zero, n_active, mu),
+    check(torch.allclose(F.cross_entropy(masked, labels64), K.thrash_ce_plain(logits, labels, zero, n_active, mu),
                          rtol=1e-5, atol=1e-6), "the cross_entropy yardstick computes another function")
-    # backward timings: one forward kept, its graph's backward timed alone
+    # the backward is timed alone through autograd: one forward kept, its graph's backward timed
+    lg = logits.clone().requires_grad_(True)
+    loss = K.thrash_ce(lg, labels, et, n_active, mu)
     plain_lg = logits.clone().requires_grad_(True)
     plain_loss = K.thrash_ce_plain(plain_lg, labels, et, n_active, mu)
     lib_lg = masked.clone().requires_grad_(True)
-    lib_loss = F.cross_entropy(lib_lg, labels.long())
+    lib_loss = F.cross_entropy(lib_lg, labels64)
+    g = torch.ones((), device=dev)  # the seed gradient, made once (autograd would fill one per call)
+    fwd = lambda: K.thrash_ce(logits, labels, et, n_active, mu)
+    bwd = lambda: torch.autograd.grad(loss, lg, g, retain_graph=True)
+    step = lambda: torch.autograd.grad(K.thrash_ce(lg, labels, et, n_active, mu), lg, g)
+    lib_step = lambda: torch.autograd.grad(F.cross_entropy(lib_lg, labels64), lib_lg, g)
     fwd_bytes = 4 * B * V + 2 * 4 * B + 4  # logits, labels, flags in; one loss out
     bwd_bytes = 2 * 4 * B * V + 2 * 4 * B + 4  # logits, labels, flags, g in; dlogits out
     # a max, a sum of exponentials and the label pick per element; the backward's exp, divide and weight
     fwd_flops, bwd_flops = 4 * B * V, 6 * B * V
     common = {"route": "cuda", "source": "src/repro_torch/csrc/thrash_ce.cu", "shape": f"B {B}, V {V}, float32"}
-    fwd = {"name": "thrash_ce_fwd", **common, "replaces": "src/repro/kernels/thrash_ce/kernel.py:50",
-           "max_abs_err": worst["loss"], "ms": time_cuda(lambda: K.thrash_ce(logits, labels, et, n_active, mu), 500),
-           "plain_ms": time_cuda(lambda: K.thrash_ce_plain(logits, labels, et, n_active, mu), 200),
-           "bound_ms": max(fwd_bytes / HBM_BYTES_PER_S, fwd_flops / FP32_FLOPS) * 1e3,
-           "bound_by": "bytes" if fwd_bytes / HBM_BYTES_PER_S >= fwd_flops / FP32_FLOPS else "operations",
-           "library_ms": time_cuda(lambda: F.cross_entropy(masked, labels.long()), 500),
-           "device_ms": device_ms(lambda: K.thrash_ce(logits, labels, et, n_active, mu), "thrash_ce_fwd")}
-    bwd = {"name": "thrash_ce_bwd", **common, "replaces": "src/repro/kernels/thrash_ce/kernel.py:71",
-           "max_abs_err": worst["grad"],
-           "ms": time_cuda(lambda: K.thrash_ce_bwd(logits, labels, et, n_active, mu, g), 500),
-           "plain_ms": time_cuda(lambda: torch.autograd.grad(plain_loss, plain_lg, retain_graph=True), 200),
-           "bound_ms": max(bwd_bytes / HBM_BYTES_PER_S, bwd_flops / FP32_FLOPS) * 1e3,
-           "bound_by": "bytes" if bwd_bytes / HBM_BYTES_PER_S >= bwd_flops / FP32_FLOPS else "operations",
-           "library_ms": time_cuda(lambda: torch.autograd.grad(lib_loss, lib_lg, retain_graph=True), 500),
-           "device_ms": device_ms(lambda: K.thrash_ce_bwd(logits, labels, et, n_active, mu, g), "thrash_ce_bwd")}
-    return [fwd, bwd]
+    (grad,) = step()
+    (fwd_ops, fwd_all_ms), (bwd_ops, bwd_all_ms), (step_ops, step_all_ms) = map(device_ops, (fwd, bwd, step))
+    fwd_row = {"name": "thrash_ce_fwd", **common, "replaces": "src/repro/kernels/thrash_ce/kernel.py:50",
+               "max_abs_err": worst["loss"], "ms": time_cuda(fwd, 500),
+               "plain_ms": time_cuda(lambda: K.thrash_ce_plain(logits, labels, et, n_active, mu), 200),
+               "bound_ms": max(fwd_bytes / HBM_BYTES_PER_S, fwd_flops / FP32_FLOPS) * 1e3,
+               "bound_by": "bytes" if fwd_bytes / HBM_BYTES_PER_S >= fwd_flops / FP32_FLOPS else "operations",
+               "library_ms": time_cuda(lambda: F.cross_entropy(masked, labels64), 500),
+               "device_ms": device_ms(fwd, "thrash_ce_fwd"),
+               "device_ops_per_call": fwd_ops, "device_ms_all_ops": fwd_all_ms,
+               # forward + backward through autograd, against cross_entropy's on the masked logits
+               "step_ms": time_cuda(step, 500), "step_library_ms": time_cuda(lib_step, 500),
+               "step_device_ops_per_call": step_ops, "step_device_ms_all_ops": step_all_ms,
+               # phase 3's loss and gradient, bit for bit, to compare two versions of the kernels
+               "loss_sha": tensor_sha(fwd()), "grad_sha": tensor_sha(grad)}
+    bwd_row = {"name": "thrash_ce_bwd", **common, "replaces": "src/repro/kernels/thrash_ce/kernel.py:71",
+               "max_abs_err": worst["grad"], "ms": time_cuda(bwd, 500),
+               "plain_ms": time_cuda(lambda: torch.autograd.grad(plain_loss, plain_lg, g, retain_graph=True), 200),
+               "bound_ms": max(bwd_bytes / HBM_BYTES_PER_S, bwd_flops / FP32_FLOPS) * 1e3,
+               "bound_by": "bytes" if bwd_bytes / HBM_BYTES_PER_S >= bwd_flops / FP32_FLOPS else "operations",
+               "library_ms": time_cuda(lambda: torch.autograd.grad(lib_loss, lib_lg, g, retain_graph=True), 500),
+               "device_ms": device_ms(bwd, "thrash_ce_bwd"), "device_ops_per_call": bwd_ops,
+               "device_ms_all_ops": bwd_all_ms}
+    return [fwd_row, bwd_row]
+
+
+def thrash_ce_checks(dev, rows: list) -> None:
+    """What the redesigned ``thrash_ce`` promises beyond its limits: one
+    device kernel per forward (the mean inside, no flag cast) and one per
+    backward (read from the profiler in the phase-3 rows); the gradient from
+    the forward's saved (m, s) equal, bit for bit, to the backward kernel
+    recomputing them (the first version's formula) on phase 3's inputs;
+    bit-for-bit repeats; ``in_et=None`` as all-zero flags and int64 labels as
+    int32 labels, bit for bit."""
+    import torch
+
+    from repro_torch.kernels import thrash_ce as K
+
+    by = {r["name"]: r for r in rows}
+    for name, key in (("thrash_ce_fwd", "device_ops_per_call"), ("thrash_ce_bwd", "device_ops_per_call"),
+                      ("thrash_ce_fwd", "step_device_ops_per_call")):
+        want = 2.0 if key.startswith("step") else 1.0
+        check(by[name][key] == want, f"{name} ran {by[name][key]} device operations per call ({key}), not {want}")
+    B, V, n_active = THRASH_SHAPES[0]
+    logits, labels, et = _thrash_inputs(dev, B, V, n_active, seed=1)
+
+    def run(lab, flags):
+        lg = logits.clone().requires_grad_(True)
+        loss = K.thrash_ce(lg, lab, flags, n_active, 0.5)
+        (grad,) = torch.autograd.grad(loss, lg)
+        return loss.detach(), grad
+
+    loss, grad = run(labels, et)
+    check(torch.equal(grad, K.thrash_ce_bwd(logits, labels, et, n_active, 0.5, torch.ones((), device=dev))),
+          "the gradient from the saved (m, s) differs from the recomputing backward kernel's")
+    for _ in range(3):
+        again = run(labels, et)
+        check(torch.equal(again[0], loss) and torch.equal(again[1], grad), "thrash_ce did not repeat bit for bit")
+    zero = run(labels, torch.zeros_like(et))
+    for lab, flags in ((labels, None), (labels.long(), torch.zeros_like(et))):
+        got = run(lab, flags)
+        check(torch.equal(got[0], zero[0]) and torch.equal(got[1], zero[1]),
+              "in_et=None or int64 labels changed thrash_ce's loss or gradient")
+    print(f"  thrash_ce: one device kernel per forward and per backward; the gradient from the saved (m, s) is the "
+          f"recomputing kernel's, bit for bit; repeats bit for bit; in_et=None and int64 labels as zeros and int32")
+
+
+def tensor_sha(t) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def device_ops(fn, iters: int = 20) -> tuple:
+    """Operations (kernels, copies, fills) the device ran per call of
+    ``fn`` and their device milliseconds per call, from ``torch.profiler``;
+    (None, None) if the profiler recorded none."""
+    times = device_times(profiled(fn, iters)).values()
+    n = sum(c for _, c in times)
+    return (n / iters, sum(t for t, _ in times) / iters * 1e3) if n else (None, None)
+
+
+def wrapper_host_us(dev) -> dict:
+    """Host microseconds per call of each step a kernel wrapper takes, at
+    phase 3's timing shapes (``time.perf_counter`` over 2,000 calls each,
+    no synchronise inside): the whole wrapper, its input checks, and the
+    generic steps it may take (a no-op dtype cast and ``contiguous``, an
+    output allocation, the stream lookup, a ``mean`` launch, a trivial
+    autograd ``Function``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import evict_select as ES
+    from repro_torch.kernels import thrash_ce as TC
+    from repro_torch.kernels._lib import stream_handle
+
+    class Identity(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x
+
+        @staticmethod
+        def backward(ctx, g):
+            return g
+
+    def us(fn, n=2000):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / n * 1e6
+
+    B, V, n_active = THRASH_SHAPES[0]
+    logits, labels, et32 = _thrash_inputs(dev, B, V, n_active, seed=1)
+    et, row = et32.bool(), torch.zeros(B, device=dev)
+    lg = logits.clone().requires_grad_(True)
+    rng = np.random.default_rng(0)
+    cand = torch.tensor(rng.random(256) < 0.6, device=dev)
+    keys = tuple(torch.tensor(rng.integers(0, 9, 256, dtype=np.int32), device=dev) for _ in range(3))
+    ne = torch.tensor(1, dtype=torch.int32, device=dev)
+    with torch.enable_grad():
+        grad_call = us(lambda: TC.thrash_ce(lg, labels, et32, n_active, 0.5))
+        trivial = us(lambda: Identity.apply(lg))
+    return {
+        "thrash_ce": {"wrapper_bool_flags": us(lambda: TC.thrash_ce(logits, labels, et, n_active, 0.5)),
+                      "wrapper_int32_flags": us(lambda: TC.thrash_ce(logits, labels, et32, n_active, 0.5)),
+                      "wrapper_int32_flags_grad": grad_call,
+                      "check": us(lambda: TC._check(logits, labels, et32, n_active)),
+                      "noop_cast_contiguous_x3": us(lambda: (logits.contiguous(), labels.to(torch.int32).contiguous(),
+                                                             et32.to(torch.int32).contiguous())),
+                      "bool_to_int32_cast": us(lambda: et.to(torch.int32)),
+                      "empty": us(lambda: torch.empty(B, dtype=torch.float32, device=dev)),
+                      "stream_handle": us(lambda: stream_handle(dev)),
+                      "mean": us(lambda: row.mean()),
+                      "trivial_function_grad": trivial},
+        "evict_select": {"wrapper": us(lambda: ES.evict_select(cand, keys, ne)),
+                         "check": us(lambda: ES._check(cand, keys, ne)),
+                         "empty_like": us(lambda: torch.empty_like(cand)),
+                         "stream_handle": us(lambda: stream_handle(dev))}}
 
 
 def kernel_flash_attention_bwd(dev) -> dict:
@@ -1572,6 +1795,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
     ap.add_argument("--time-flash-bf16", metavar="LABEL",
                     help="after the build, only time the bf16 flash kernel and print one line headed LABEL")
+    ap.add_argument("--time-kernels", metavar="LABEL",
+                    help="after the build, only run phase 3's rows of evict_select, freq_table, the float32 "
+                         "flash_attention forward and backward and thrash_ce, and the wrappers' host steps, "
+                         "and print one JSON line headed LABEL")
+    ap.add_argument("--time-training", metavar="LABEL",
+                    help="after the build, only time phase 7's fine-tune group (five times) and the fine-tuned "
+                         "run_ours (once) and print one JSON line headed LABEL")
     args = ap.parse_args()
     try:
         import torch
@@ -1605,14 +1835,28 @@ def main() -> int:
         if args.time_flash_bf16 is not None:
             time_flash_bf16(dev, args.time_flash_bf16)
             return 0
+        if args.time_kernels is not None:
+            time_kernels(dev, args.time_kernels)
+            return 0
+        if args.time_training is not None:
+            time_training(dev, args.time_training)
+            return 0
 
         print(f"[3/7] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
         rows = [kernel_evict_select(dev), *kernel_freq_table(dev), kernel_flash_attention(dev),
                 kernel_flash_attention_bf16(dev), kernel_flash_attention_bwd(dev), kernel_decode_attention(dev),
                 kernel_ssd_scan(dev), *kernel_thrash_ce(dev)]
+        thrash_ce_checks(dev, rows)
         for r in rows:
             print(f"  {r['name']:20s} {r['shape']}: kernel {r['ms']:.4f} ms/call (device {r['device_ms']}), "
                   f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, bound {r['bound_ms']:.6f} ms")
+        by_name = {r["name"]: r for r in rows}
+        es, tf = by_name["evict_select"], by_name["thrash_ce_fwd"]
+        print(f"  evict_select at n_evict 64: {es['ms_n64']:.4f} ms/call (device {es['device_ms_n64']}); at 0: "
+              f"device {es['device_ms_n0']}")
+        print(f"  thrash_ce step (forward + backward through autograd): {tf['step_ms']:.4f} ms, cross_entropy's "
+              f"{tf['step_library_ms']:.4f} ms; device operations per forward {tf['device_ops_per_call']}, per "
+              f"step {tf['step_device_ops_per_call']}")
 
         by_path = {}
         print(f"[4/7] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "

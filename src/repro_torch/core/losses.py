@@ -80,16 +80,11 @@ def train_loss(logits, f_new, labels, *, n_active: int, f_old=None, in_et=None, 
     """:func:`total_loss`'s value through the ``thrash_ce`` kernel.
 
     ``in_et``: the batch's E∪T flags on the logits' device, or None (no
-    thrashing term: the kernel gets zeros and any mu).  ``n_et``: |S|, the
-    number of set flags, counted by the caller from its host copy of the
-    flags, so the loss needs no device sync.
+    thrashing term: every weight 1).  ``n_et``: |S|, the number of set
+    flags, counted by the caller from its host copy of the flags, so the
+    loss needs no device sync.
     """
-    B = logits.shape[0]
-    if in_et is None:
-        in_et = torch.zeros(B, dtype=torch.int32, device=logits.device)
-        mu_b = mu
-    else:
-        mu_b = mu * B / max(n_et, 1)
+    mu_b = mu if in_et is None else mu * logits.shape[0] / max(n_et, 1)
     loss = thrash_ce(logits, labels, in_et, n_active, mu_b)
     if f_old is not None:
         loss = loss + lam * lucir_distill(f_new, f_old).mean()

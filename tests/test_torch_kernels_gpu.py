@@ -8,6 +8,8 @@ On a machine with a card::
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -29,7 +31,7 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("nb", [1, 37, 256, 512, 3000])
+@pytest.mark.parametrize("nb", [1, 33, 37, 256, 512, 600, 3000])
 @pytest.mark.parametrize("n_keys", [1, 3, 4])
 def test_evict_select_matches_plain(dev, nb, n_keys):
     rng = np.random.default_rng(nb * 10 + n_keys)
@@ -37,7 +39,7 @@ def test_evict_select_matches_plain(dev, nb, n_keys):
         cand = torch.tensor(rng.random(nb) < 0.5, device=dev)
         keys = tuple(torch.tensor(rng.integers(-2, 2, nb, dtype=np.int32), device=dev) for _ in range(n_keys))
         n_cand = int(cand.sum())
-        for n in sorted({0, 1, n_cand // 2, n_cand, n_cand + 3}):
+        for n in sorted({0, 1, 64, n_cand // 2, n_cand, n_cand + 3, n_cand + 7}):
             ne = torch.tensor(n, dtype=torch.int32, device=dev)
             before = kernels.LAUNCHES["evict_select"]
             got = ES.evict_select(cand, keys, ne)
@@ -386,6 +388,76 @@ def test_thrash_ce_limits_reject_a_defective_plain_version(dev, defect, B, V, n_
            "no_weight": lambda lg, lab, e, na, mu: TC.thrash_ce_plain(lg, lab, torch.zeros_like(e), na, mu)}[defect]
     got = _thrash_loss_and_grad(TC.thrash_ce, logits, labels, et, n_active, 0.5)
     assert not _thrash_close(got, _thrash_loss_and_grad(bad, logits, labels, et, n_active, 0.5))
+
+
+def _device_ops(fn, iters=5) -> float:
+    """Operations (kernels, copies, fills) the device ran per call of fn.
+    The profiled window is padded with 20 ms of idle host time at each end:
+    the profiler keeps only the device events whose time, on the host's
+    clock, falls inside its window, and a window of a few short launches can
+    lose some or all of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        time.sleep(0.02)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+    n = sum(1 for ev in prof.profiler.kineto_results.events() if ev.device_type() == torch.autograd.DeviceType.CUDA)
+    return n / iters
+
+
+def test_thrash_ce_launches_one_device_kernel_per_forward_and_backward(dev):
+    """The mean is taken in the forward kernel (no second launch) and the
+    backward is one kernel, with the trainer's int32 flags (bool flags cost
+    a cast)."""
+    from repro_torch.kernels import thrash_ce as TC
+
+    logits, labels, et = _thrash_inputs(dev, 256, 1024, 700, seed=1)
+    et = et.to(torch.int32)
+    g = torch.ones((), device=dev)
+    lg = logits.clone().requires_grad_(True)
+    assert _device_ops(lambda: TC.thrash_ce(logits, labels, et, 700)) == 1
+    assert _device_ops(lambda: TC.thrash_ce(lg, labels, et, 700)) == 1
+    loss = TC.thrash_ce(lg, labels, et, 700)
+    assert _device_ops(lambda: torch.autograd.grad(loss, lg, g, retain_graph=True)) == 1
+
+
+@pytest.mark.parametrize("B,V,n_active", [(256, 1024, 700), (32, 32, 20), (1, 64, 64), (1280, 300, 299)])
+def test_thrash_ce_gradient_is_the_recomputing_kernels_bit_for_bit(dev, B, V, n_active):
+    """The backward from the forward's saved (m, s) equals, bit for bit, the
+    backward kernel recomputing them from the logits (the first version's
+    formula), and both the loss and the gradient repeat bit for bit."""
+    from repro_torch.kernels import thrash_ce as TC
+
+    logits, labels, et = _thrash_inputs(dev, B, V, n_active, seed=1)
+    loss, grad = _thrash_loss_and_grad(TC.thrash_ce, logits, labels, et, n_active, 0.5)
+    recomputed = TC.thrash_ce_bwd(logits, labels, et, n_active, 0.5, torch.ones((), device=dev))
+    assert torch.equal(grad, recomputed)
+    for _ in range(3):
+        again = _thrash_loss_and_grad(TC.thrash_ce, logits, labels, et, n_active, 0.5)
+        assert torch.equal(again[0], loss) and torch.equal(again[1], grad)
+    assert torch.equal(TC.thrash_ce(logits, labels, et, n_active, 0.5), loss)  # no-grad path: the same kernel
+
+
+def test_thrash_ce_flags_none_and_int64_labels(dev):
+    """``in_et=None`` is all-zero flags and int64 labels are int32 labels,
+    bit for bit; bool flags are int32 flags."""
+    from repro_torch.kernels import thrash_ce as TC
+
+    logits, labels, et = _thrash_inputs(dev, 256, 1024, 700, seed=2)
+    base = _thrash_loss_and_grad(TC.thrash_ce, logits, labels, torch.zeros_like(et), 700, 0.5)
+    for lab, flags in ((labels, None), (labels.long(), torch.zeros_like(et)), (labels.long(), None)):
+        got = _thrash_loss_and_grad(TC.thrash_ce, logits, lab, flags, 700, 0.5)
+        assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])
+    want = _thrash_loss_and_grad(TC.thrash_ce_plain, logits, labels, None, 700, 0.5)
+    assert _thrash_close(base, want)
+    flagged = _thrash_loss_and_grad(TC.thrash_ce, logits, labels, et, 700, 0.5)
+    as_int = _thrash_loss_and_grad(TC.thrash_ce, logits, labels, et.to(torch.int32), 700, 0.5)
+    assert torch.equal(flagged[0], as_int[0]) and torch.equal(flagged[1], as_int[1])
 
 
 def _attn_bwd_inputs(dev, B, S, T, K, G, D, seed):

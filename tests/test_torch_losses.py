@@ -90,7 +90,7 @@ def test_train_loss_equals_total_loss(frac_et, use_old):
 
 def test_train_loss_without_flags_is_total_loss_without_the_term():
     """JAX's ``train_step`` passes ``in_et=None`` when the thrashing term is
-    off; the port passes zeros to ``thrash_ce``: the same function."""
+    off; so does the port, and ``thrash_ce`` weighs every row 1."""
     logits, f_new, f_old, labels, et = _batch(128, 64, 16, 40, 0.5, seed=9)
     want, want_lg, _, metrics = _jax_total(logits, f_new, f_old, labels, et, 40, True, False)
     assert "thrash_term" not in metrics
@@ -99,6 +99,22 @@ def test_train_loss_without_flags_is_total_loss_without_the_term():
     (g,) = torch.autograd.grad(loss, lg)
     np.testing.assert_allclose(float(loss.detach()), want, rtol=RTOL)
     np.testing.assert_allclose(g.numpy(), want_lg, rtol=RTOL, atol=GRAD_ATOL)
+
+
+def test_train_loss_without_flags_is_all_zero_flags_bit_for_bit():
+    """``in_et=None`` (no flags allocated) gives the loss and gradient of
+    all-zero flags, bit for bit."""
+    logits, f_new, f_old, labels, _ = _batch(256, 1024, 64, 300, 0.0, seed=12)
+
+    def run(**kw):
+        lg = torch.tensor(logits, requires_grad=True)
+        loss = PL.train_loss(lg, torch.tensor(f_new), torch.tensor(labels), n_active=300, f_old=torch.tensor(f_old),
+                             **kw)
+        (g,) = torch.autograd.grad(loss, lg)
+        return loss.detach(), g
+
+    none, zeros = run(), run(in_et=torch.zeros(256, dtype=torch.int32), n_et=0)
+    assert torch.equal(none[0], zeros[0]) and torch.equal(none[1], zeros[1])
 
 
 def test_train_loss_on_a_tiny_group_resized_to_one_batch():

@@ -145,3 +145,118 @@ def test_the_kernel_limits_reject_a_defective_plain_version(shape, defect):
     loss_ok = torch.allclose(worse, good, rtol=KERNEL_LOSS_TOL[0], atol=KERNEL_LOSS_TOL[1])
     grad_ok = torch.allclose(gb, g, rtol=KERNEL_GRAD_TOL[0], atol=KERNEL_GRAD_TOL[1])
     assert not (loss_ok and grad_ok)
+
+
+# --- the CUDA kernels' algorithm, emulated on the CPU ---------------------------
+# src/repro_torch/csrc/thrash_ce.cu: a block of THREADS threads per row,
+# each thread sums its strided share of the row, warps add by a butterfly of
+# shuffles, and the eight warp partials are added in warp order; the
+# forward's last block adds the row losses the same way.
+THREADS = 256
+NEG = TC.NEG
+
+
+def _block_sum(parts):
+    """The kernel's reductions over ``parts`` (..., n) float32, n threads: a
+    butterfly within each warp, then the warp partials in warp order."""
+    x = parts.reshape(*parts.shape[:-1], parts.shape[-1] // 32, 32)
+    for o in (16, 8, 4, 2, 1):
+        x = x + x[..., torch.arange(32) ^ o]
+    y = x[..., 0, 0]
+    for w in range(1, x.shape[-2]):
+        y = y + x[..., w, 0]
+    return y
+
+
+def _strided(x, fill):
+    """(B, V) -> (B, THREADS, ceil(V / THREADS)): thread t's elements t, t +
+    THREADS, ... in its loop's order, padded with ``fill``."""
+    B, V = x.shape
+    n = -(-V // THREADS)
+    pad = torch.full((B, n * THREADS - V), fill, dtype=x.dtype)
+    return torch.cat([x, pad], 1).reshape(B, n, THREADS).transpose(1, 2)
+
+
+def _row_stats(lm):
+    m = _strided(lm, NEG).amax(-1).amax(-1)  # a max is exact in any order
+    e = torch.exp(lm - m[:, None])
+    per_thread = torch.zeros(lm.shape[0], THREADS)
+    for k in range(_strided(e, 0.0).shape[-1]):  # each thread's loop, in order
+        per_thread = per_thread + _strided(e, 0.0)[..., k]
+    return m, _block_sum(per_thread)
+
+
+def _masked(logits, n_active):
+    lg = torch.tensor(logits)
+    return torch.where(torch.arange(lg.shape[1]) >= n_active, torch.full_like(lg, NEG), lg)
+
+
+def emulated_forward(logits, labels, et, n_active, mu):
+    """The forward kernel: row losses, the rows' (m, s), and the mean that
+    the last block takes over the row losses in its fixed order."""
+    lm = _masked(logits, n_active)
+    m, s = _row_stats(lm)
+    w = 1.0 - mu * torch.tensor(et).float()
+    rows = (torch.log(s) + m - lm[torch.arange(len(labels)), torch.tensor(labels).long()]) * w
+    B = rows.shape[0]
+    per_thread = torch.zeros(THREADS)
+    for r0 in range(0, B, THREADS):  # thread t adds rows t, t + THREADS, ...
+        chunk = torch.zeros(THREADS)
+        chunk[:min(THREADS, B - r0)] = rows[r0:r0 + THREADS]
+        per_thread = per_thread + chunk
+    return _block_sum(per_thread) / B, (m, s)
+
+
+def emulated_backward(logits, labels, et, n_active, mu, g, stats=None):
+    """The backward kernel from the forward's (m, s), or recomputing them."""
+    lm = _masked(logits, n_active)
+    m, s = _row_stats(lm) if stats is None else stats
+    B, V = lm.shape
+    p = torch.exp(lm - m[:, None]) / torch.clamp(s, min=1e-30)[:, None]
+    onehot = (torch.arange(V)[None, :] == torch.tensor(labels).long()[:, None]).float()
+    w = 1.0 - mu * torch.tensor(et).float()
+    return ((p - onehot) * w[:, None]) * (torch.tensor(g, dtype=torch.float32) / B)
+
+
+@pytest.mark.parametrize("B,V,n_active,mu", [(256, 1024, 700, 0.5), (128, 64, 40, 0.5), (32, 32, 20, 0.5),
+                                             (128, 4096, 4000, 0.9), (1, 64, 64, 0.0), (1280, 300, 299, 1.6)])
+def test_kernel_emulation_matches_the_tpu_kernel(B, V, n_active, mu):
+    """The fixed-order mean in the forward's last block and the backward
+    from the saved (m, s), at the card's limits against the TPU kernel in
+    interpret mode; the gradient bit for bit the recomputing backward's."""
+    logits, labels, et = _inputs(B, V, n_active, seed=B + V)
+    loss, stats = emulated_forward(logits, labels, et, n_active, mu)
+    grad = emulated_backward(logits, labels, et, n_active, mu, 1.0, stats)
+    assert torch.equal(grad, emulated_backward(logits, labels, et, n_active, mu, 1.0))
+    jl, jlab, jet = jnp.asarray(logits), jnp.asarray(labels), jnp.asarray(et)
+    bb = min(JK.DEFAULT_BB, B)
+    k_loss = float(JK.thrash_ce(jl, jlab, jet, n_active, mu, bb, True))
+    k_grad = np.asarray(jax.grad(lambda x: JK.thrash_ce(x, jlab, jet, n_active, mu, bb, True))(jl))
+    np.testing.assert_allclose(float(loss), k_loss, rtol=KERNEL_LOSS_TOL[0], atol=KERNEL_LOSS_TOL[1])
+    np.testing.assert_allclose(grad.numpy(), k_grad, rtol=KERNEL_GRAD_TOL[0], atol=KERNEL_GRAD_TOL[1])
+    assert bool((grad[:, n_active:] == 0).all())
+
+
+def test_kernel_emulation_limits_reject_a_mean_over_the_wrong_rows():
+    """A last block that misses the final row (a ticket off by one) is
+    outside the loss limit."""
+    logits, labels, et = _inputs(256, 1024, 700, seed=1)
+    good, _ = emulated_forward(logits, labels, et, 700, 0.5)
+    bad, _ = emulated_forward(logits[:-1], labels[:-1], et[:-1], 700, 0.5)
+    assert not np.isclose(float(bad), float(good), rtol=KERNEL_LOSS_TOL[0], atol=KERNEL_LOSS_TOL[1])
+
+
+def test_no_flags_is_a_weight_of_one_and_int64_labels_are_int32s():
+    """``in_et=None`` gives the loss and gradient of all-zero flags, bit for
+    bit, and int64 labels those of int32 labels (the CPU path)."""
+    logits, labels, et = _inputs(128, 64, 40, seed=5)
+
+    def run(lab, flags):
+        lg = torch.tensor(logits, requires_grad=True)
+        loss = TC.thrash_ce(lg, lab, flags, 40, 0.7)
+        (g,) = torch.autograd.grad(loss, lg)
+        return loss.detach(), g
+
+    base = run(torch.tensor(labels), torch.zeros(128, dtype=torch.int32))
+    for got in (run(torch.tensor(labels), None), run(torch.tensor(labels).long(), torch.zeros(128, dtype=torch.int32))):
+        assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])
