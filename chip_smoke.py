@@ -31,7 +31,11 @@ Phases, in order; any failure exits non-zero:
               against ``cross_entropy``'s, with one device kernel per
               forward and per backward (read from the profiler), its
               gradient from the saved row statistics equal bit for bit to
-              the recomputing backward kernel's, and bit-for-bit repeats.
+              the recomputing backward kernel's, and bit-for-bit repeats;
+              the float32 attention forward's output and the backward's
+              dQ, dK and dV at the predictor's shape equal, by SHA-256
+              (``FA_SHA``), to the serial kernels' they replaced, with one
+              device operation per call of each.
 4. main     — the paper's online loop, ``repro_torch.uvm.runtime.run_ours``,
               on Hotspot at scale 1.0 and 150% oversubscription with the
               paper-width predictor (``CONFIG``), ``TrainConfig(2048, 0,
@@ -106,7 +110,8 @@ With ``--time-kernels LABEL`` the script runs phases 1 and 2, then phase
 3's rows of ``evict_select``, ``freq_update``/``freq_lookup``, the float32
 ``flash_attention`` forward and backward and ``thrash_ce`` (each time the
 median of five), the wrappers' host microseconds per step, and the SHA-256
-of ``thrash_ce``'s loss and gradient on phase 3's inputs, and prints them
+of ``thrash_ce``'s loss and gradient and of the float32 attention's output
+and gradients on phase 3's inputs, and prints them
 as one JSON line headed LABEL.  Copy this script into the other checkout so
 that both versions are timed by the same code, and run them in turns.
 ``--time-training LABEL`` does the same for the training path: phase 7
@@ -184,6 +189,14 @@ SSD_TOL = {"float32": {"y": (1e-5, 4e-3), "state": (1e-5, 1e-3)},
 # at most 1/B.  A padded class left unmasked or the weight dropped moves the
 # loss or the gradient far past these (tests/test_torch_thrash_ce.py)
 THRASH_LOSS_TOL, THRASH_GRAD_TOL = (1e-5, 1e-6), (1e-5, 1e-9)
+# SHA-256 (first 16 hex digits, ``tensor_sha``) of the float32 attention
+# forward's output and of dQ, dK and dV on phase 3's first inputs at the
+# predictor's shape (B 256, S = T = 10, K 2, G 1, D 32), as the first kernels
+# (one thread per query row, keys in series) gave them on an H100.  The
+# kernels since keep that arithmetic, expression for expression, and change
+# only its parallelism, so these bits hold phase 4's exact agreement with JAX
+# and phase 7's digits
+FA_SHA = {"out": "1e2e8f2a07c933be", "dq": "0ef03c181e0be9bd", "dk": "26c1fb23a5a6156a", "dv": "cfeaaf1833b2959a"}
 # the attention backward against autograd through the plain version: float32
 # sums in other orders through the softmax's backward (dS = P * (dP - D));
 # a causal mask dropped in the backward is off by about 1
@@ -524,10 +537,15 @@ def kernel_flash_attention(dev) -> dict:
         check(torch.allclose(got, want, rtol=FA_RTOL, atol=FA_ATOL),
               f"flash_attention differs from plain at {shape} {kw}: max |err| {float((got - want).abs().max())}")
         worst = max(worst, float((got - want).abs().max()))
+        if shape == cases[0][0]:
+            sha = tensor_sha(got)
+    check(sha == FA_SHA["out"], f"flash_attention's output SHA-256 {sha} is not the serial kernel's {FA_SHA['out']}")
     print(f"  flash_attention: {len(cases)} shapes (the predictor's B256 S=T=10 K2 G1 D32 first), "
-          f"rtol {FA_RTOL} atol {FA_ATOL}: max |err| {worst:.3g}")
+          f"rtol {FA_RTOL} atol {FA_ATOL}: max |err| {worst:.3g}; output SHA-256 {sha}, the serial kernel's")
     B, S, T, Kh, G, D = 256, 10, 10, 2, 1, 32
     q, k, v = inputs(B, S, T, Kh, G, D)
+    ops, all_ms = device_ops(lambda: K.flash_attention(q, k, v))
+    check(ops == 1.0, f"flash_attention ran {ops} device operations per call, not 1")
     # the library yardstick on the same numbers, in its (B, H, S, D) layout
     qh, kh, vh = (x.reshape(B, x.shape[1], Kh * (G if x is q else 1), D).transpose(1, 2).contiguous()
                   for x in (q, k, v))
@@ -545,6 +563,7 @@ def kernel_flash_attention(dev) -> dict:
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS else "operations",
             "library_ms": time_cuda(sdpa, 500),
             "device_ms": device_ms(lambda: K.flash_attention(q, k, v), "flash_attention"),
+            "device_ops_per_call": ops, "device_ms_all_ops": all_ms, "sha": {"out": sha},
             "shape": f"B {B}, S=T {S}, K {Kh}, G {G}, D {D}, float32"}
 
 
@@ -641,7 +660,7 @@ def time_flash_bf16(dev, label: str) -> None:
 TIMED_KEYS = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "ms_n64", "device_ms_n64",
               "device_ms_n0", "copy_ms", "copy_share", "skewed_ms", "skewed_device_ms", "device_ops_per_call",
               "device_ms_all_ops", "step_ms", "step_library_ms", "step_device_ops_per_call", "step_device_ms_all_ops",
-              "loss_sha", "grad_sha")
+              "loss_sha", "grad_sha", "sha")
 
 
 def time_kernels(dev, label: str) -> None:
@@ -1010,13 +1029,17 @@ def wrapper_host_us(dev) -> dict:
     no synchronise inside): the whole wrapper, its input checks, and the
     generic steps it may take (a no-op dtype cast and ``contiguous``, an
     output allocation, the stream lookup, a ``mean`` launch, a trivial
-    autograd ``Function``)."""
+    autograd ``Function``); for the float32 attention also the forward with
+    a gradient, the backward through autograd and alone, three allocations
+    against one carved in three, the cached shape arguments and the bare
+    launcher."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import evict_select as ES
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import thrash_ce as TC
-    from repro_torch.kernels._lib import stream_handle
+    from repro_torch.kernels._lib import LIBRARY, stream_handle
 
     class Identity(torch.autograd.Function):
         @staticmethod
@@ -1049,7 +1072,38 @@ def wrapper_host_us(dev) -> dict:
     with torch.enable_grad():
         grad_call = us(lambda: TC.thrash_ce(lg, labels, et32, n_active, 0.5))
         trivial = us(lambda: Identity.apply(lg))
+    # the float32 attention at the predictor's shape
+    mk = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32), device=dev)
+    q, k, v, do = mk(256, 10, 2, 1, 32), mk(256, 10, 2, 32), mk(256, 10, 2, 32), mk(256, 10, 2, 1, 32)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        fwd_grad = us(lambda: FA.flash_attention(*leaves))
+        out = FA.flash_attention(*leaves)
+    nq, nk = q.numel(), k.numel()
+
+    def carve():
+        buf = torch.empty(nq + 2 * nk, device=dev)
+        return (buf.as_strided(q.shape, q.stride()), buf.as_strided(k.shape, k.stride(), nq),
+                buf.as_strided(k.shape, k.stride(), nq + nk))
+
+    flash = {"wrapper": us(lambda: FA.flash_attention(q, k, v)), "wrapper_grad": fwd_grad,
+             "backward_through_autograd": us(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)),
+             "bwd_wrapper": us(lambda: FA.flash_attention_bwd(q, k, v, do)),
+             "check": us(lambda: FA._check(q, k, v)),
+             "dtype_contiguity": us(lambda: k.dtype == q.dtype and v.dtype == q.dtype and q.is_contiguous()
+                                    and k.is_contiguous() and v.is_contiguous()),
+             "empty_like": us(lambda: torch.empty_like(q)),
+             "empty_like_x3": us(lambda: (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))),
+             "one_empty_as_strided_x3": us(carve),
+             "stream_handle": us(lambda: stream_handle(dev))}
+    if hasattr(FA, "_shape_args"):
+        fn, args = LIBRARY.function("repro_flash_attention_f32"), FA._shape_args(q, 10, True, 0, None)[1]
+        o = torch.empty_like(q)
+        flash["shape_args"] = us(lambda: FA._shape_args(q, 10, True, 0, None))
+        flash["launcher"] = us(lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), args,
+                                          stream_handle(dev)))
     return {
+        "flash_attention": flash,
         "thrash_ce": {"wrapper_bool_flags": us(lambda: TC.thrash_ce(logits, labels, et, n_active, 0.5)),
                       "wrapper_int32_flags": us(lambda: TC.thrash_ce(logits, labels, et32, n_active, 0.5)),
                       "wrapper_int32_flags_grad": grad_call,
@@ -1096,6 +1150,11 @@ def kernel_flash_attention_bwd(dev) -> dict:
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
         check(within(got, want), f"flash_attention_bwd differs from plain at {shape} {kw}: max |err| {err}")
         worst = max(worst, err)
+        if shape == cases[0][0]:
+            sha = {name: tensor_sha(g) for name, g in zip(("dq", "dk", "dv"), got)}
+    for name, got_sha in sha.items():
+        check(got_sha == FA_SHA[name], f"flash_attention_bwd's {name} SHA-256 {got_sha} is not the serial kernel's "
+                                       f"{FA_SHA[name]}")
     # through autograd: the wrapper's gradient is the backward kernel's
     q, k, v, do = inputs(8, 10, 10, 2, 1, 32)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -1114,9 +1173,11 @@ def kernel_flash_attention_bwd(dev) -> dict:
     off = max(float((a - b).abs().max()) for a, b in zip(got, bad))
     print(f"  flash_attention_bwd: {len(cases)} shapes (the predictor's CONFIG and SMOKE shapes first), rtol/atol "
           f"{ATTN_BWD_TOL}: max |err| {worst:.3g}; autograd reaches the kernel; causal mask dropped: off by "
-          f"{off:.3g}, rejected")
+          f"{off:.3g}, rejected; SHA-256 of dQ, dK, dV {sha}, the serial kernel's")
     B, S, T, Kh, G, D = 256, 10, 10, 2, 1, 32
     q, k, v, do = inputs(B, S, T, Kh, G, D)
+    ops, all_ms = device_ops(lambda: K.flash_attention_bwd(q, k, v, do))
+    check(ops == 1.0, f"flash_attention_bwd ran {ops} device operations per call, not 1")
     with torch.enable_grad():
         pl = [t.clone().requires_grad_(True) for t in (q, k, v)]
         plain_out = K.attend_chunked(*pl)
@@ -1137,6 +1198,7 @@ def kernel_flash_attention_bwd(dev) -> dict:
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS else "operations",
             "library_ms": time_cuda(lambda: torch.autograd.grad(lib_out, lib, lib_do, retain_graph=True), 500),
             "device_ms": device_ms(lambda: K.flash_attention_bwd(q, k, v, do), "flash_attention_bwd"),
+            "device_ops_per_call": ops, "device_ms_all_ops": all_ms, "sha": sha,
             "shape": f"B {B}, S=T {S}, K {Kh}, G {G}, D {D}, float32, causal"}
 
 

@@ -34,9 +34,9 @@ _SIGNATURES = {
     "repro_evict_select": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
     "repro_freq_update": (_P, _P, _P, _I, _I, _P),
     "repro_freq_lookup": (_P, _P, _P, _P, _I, _I, _P),
-    "repro_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "repro_flash_attention_f32": (_P, _P, _P, _P, _P, _P),
     "repro_flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-    "repro_flash_attention_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "repro_flash_attention_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P),
     "repro_decode_attention_f32": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F, _P),
     "repro_decode_attention_bf16": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F, _P),
     "repro_ssd_scan_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -52,6 +52,7 @@ class KernelLibrary:
     def __init__(self):
         self._lock = threading.Lock()
         self._cdll: ctypes.CDLL | None = None
+        self._functions: dict = {}
         self.build_seconds: float | None = None  # None: loaded a build that already existed
         self.ptxas_log = ""
 
@@ -124,12 +125,24 @@ class KernelLibrary:
                 self._cdll = lib
             return self._cdll
 
+    def function(self, fn: str):
+        """The loaded launcher ``fn`` (looked up once; the library is built
+        at the first)."""
+        found = self._functions.get(fn)
+        if found is None:
+            found = self._functions[fn] = getattr(self.cdll(), fn)
+        return found
+
     def call(self, fn: str, *args) -> None:
         """Call one launcher; raise if it reports an error."""
-        code = getattr(self._cdll or self.cdll(), fn)(*args)
+        code = self.function(fn)(*args)
         if code != 0:
-            msg = "unsupported shape" if code < 0 else self._cdll.repro_error_string(code).decode()
-            raise RuntimeError(f"{fn} failed: {msg} (code {code})")
+            self.fail(fn, code)
+
+    def fail(self, fn: str, code: int):
+        """Raise for the error code ``code`` that launcher ``fn`` returned."""
+        msg = "unsupported shape" if code < 0 else self._cdll.repro_error_string(code).decode()
+        raise RuntimeError(f"{fn} failed: {msg} (code {code})")
 
 
 LIBRARY = KernelLibrary()

@@ -22,6 +22,7 @@ only; bf16 with a gradient raises).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -32,10 +33,9 @@ from repro_torch.kernels._lib import LIBRARY, ptr, stream_handle
 # KV-chunk size of the plain version's online-softmax loop.
 ATTN_KV_CHUNK = 1024
 _MAX_GROUP = 128
-# launcher, launch-count name and head widths per element type
-_ENTRY = {torch.float32: ("repro_flash_attention_f32", "flash_attention", (8, 16, 32, 64, 128)),
-          torch.bfloat16: ("repro_flash_attention_bf16", "flash_attention_bf16", (16, 32, 64, 128))}
-_HEAD_DIMS = _ENTRY[torch.float32][2]  # the float32 backward's
+# head widths the kernels are built for, per element type
+_HEAD_WIDTHS = {torch.float32: (8, 16, 32, 64, 128), torch.bfloat16: (16, 32, 64, 128)}
+_HEAD_DIMS = _HEAD_WIDTHS[torch.float32]  # the float32 forward's and backward's
 # the backward kernel holds a head's whole problem in shared memory: q and
 # dO rows (S * G), k and v rows (T) and two (S * G, T) tiles, float32
 BWD_SMEM_BYTES = 232448
@@ -87,26 +87,70 @@ def attend_chunked(q, k, v, *, q_offset=0, causal=True, kv_len=None, kv_chunk=AT
 
 
 def _check(q, k, v) -> None:
-    if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
+    qs, ks = q.shape, k.shape
+    if len(qs) != 5 or len(ks) != 4 or v.shape != ks:
         raise ValueError(f"flash_attention takes q (B,S,K,G,D), k and v (B,T,K,D); got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    B, S, K, G, D = q.shape
-    if k.shape[0] != B or k.shape[2] != K or k.shape[3] != D:
-        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    if len({q.device, k.device, v.device}) != 1:
+                         f"{tuple(qs)}, {tuple(ks)}, {tuple(v.shape)}")
+    if ks[0] != qs[0] or ks[2] != qs[2] or ks[3] != qs[4]:
+        raise ValueError(f"q {tuple(qs)} and k {tuple(ks)} disagree")
+    if not q.device == k.device == v.device:
         raise ValueError("q, k and v must be on one device")
 
 
-def _launch_forward(q, k, v, causal, q_offset, kv_len):
+class _ShapeArgs(ctypes.Structure):
+    """The float32 kernels' shape arguments (``FaArgs`` in
+    ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in ("B", "S", "T", "K", "G", "D", "causal", "q_offset", "kv_len")] + [
+        ("scale", ctypes.c_float)]
+
+
+# (q.shape, T, causal, q_offset, kv_len) -> (_ShapeArgs, its address), for
+# float32 shapes whose head width and group the kernels take
+_SHAPE_ARGS: dict = {}
+_MAX_SHAPES = 4096  # distinct keys kept; past that the cache starts again
+
+
+def _shape_args(q, T: int, causal, q_offset, kv_len) -> tuple:
+    """The float32 kernels' shape arguments for this call and their address,
+    built (and the head width and group checked) once per distinct key.  A
+    caller that launches later keeps the tuple, and so the arguments, alive."""
+    key = (q.shape, T, causal, q_offset, kv_len)
+    hit = _SHAPE_ARGS.get(key)
+    if hit is None:
+        B, S, K, G, D = q.shape
+        if D not in _HEAD_DIMS or G > _MAX_GROUP:
+            raise ValueError(f"the {q.dtype} CUDA kernel takes head widths {_HEAD_DIMS} and groups <= {_MAX_GROUP}; "
+                             f"got D={D}, G={G}")
+        args = _ShapeArgs(B, S, T, K, G, D, int(causal), int(q_offset), T if kv_len is None else int(kv_len),
+                          scale_for(D, torch.float32))
+        if len(_SHAPE_ARGS) >= _MAX_SHAPES:
+            _SHAPE_ARGS.clear()
+        hit = _SHAPE_ARGS[key] = (args, ctypes.addressof(args))
+    return hit
+
+
+def _launch_f32(q, k, v, shape_args):
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    code = LIBRARY.function("repro_flash_attention_f32")(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                                         shape_args[1], stream_handle(q.device))
+    if code:
+        LIBRARY.fail("repro_flash_attention_f32", code)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def _launch_bf16(q, k, v, causal, q_offset, kv_len):
     B, S, K, G, D = q.shape
     T = k.shape[1]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn, count, _ = _ENTRY[q.dtype]
-    LIBRARY.call(fn, ptr(q), ptr(k), ptr(v), ptr(out), B, S, T, K, G, D, int(causal), int(q_offset),
-                 T if kv_len is None else int(kv_len), scale_for(D, q.dtype), stream_handle(q.device))
-    LAUNCHES[count] += 1
+    LIBRARY.call("repro_flash_attention_bf16", ptr(q), ptr(k), ptr(v), ptr(out), B, S, T, K, G, D, int(causal),
+                 int(q_offset), T if kv_len is None else int(kv_len), scale_for(D, q.dtype), stream_handle(q.device))
+    LAUNCHES["flash_attention_bf16"] += 1
     return out
 
 
@@ -114,32 +158,46 @@ def bwd_smem_bytes(S: int, T: int, G: int, D: int) -> int:
     return 4 * (2 * S * G * D + 2 * T * D + 2 * S * G * T)
 
 
+def _launch_backward(q, k, v, do, shape_args):
+    """The backward kernel on checked inputs: dq, dk and dv carved from one
+    allocation."""
+    nq, nk = q.numel(), k.numel()
+    buf = torch.empty(nq + 2 * nk, dtype=torch.float32, device=q.device)
+    dq, dk, dv = (buf.as_strided(q.shape, q.stride()), buf.as_strided(k.shape, k.stride(), nq),
+                  buf.as_strided(k.shape, k.stride(), nq + nk))
+    if nq == 0 or nk == 0:
+        buf.zero_()
+        return dq, dk, dv
+    code = LIBRARY.function("repro_flash_attention_bwd_f32")(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                                             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                                             shape_args[1], stream_handle(q.device))
+    if code:
+        LIBRARY.fail("repro_flash_attention_bwd_f32", code)
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
 def flash_attention_bwd(q, k, v, do, *, causal=True, q_offset: int = 0, kv_len: int | None = None):
     """dQ, dK, dV of :func:`flash_attention` for float32 CUDA tensors (the
     backward kernel), given the output gradient ``do`` (B,S,K,G,D)."""
     _check(q, k, v)
-    B, S, K, G, D = q.shape
-    T = k.shape[1]
-    if q.device.type != "cuda":
+    if not q.is_cuda:
         raise ValueError(f"the attention backward kernel runs on cuda tensors, not {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"the attention backward kernel takes contiguous float32 tensors; {name} is "
-                             f"{t.dtype}{'' if t.is_contiguous() else ', not contiguous'}")
+    if not (q.dtype == k.dtype == v.dtype == do.dtype == torch.float32 and q.is_contiguous() and k.is_contiguous()
+            and v.is_contiguous() and do.is_contiguous()):
+        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+            if t.dtype != torch.float32 or not t.is_contiguous():
+                raise ValueError(f"the attention backward kernel takes contiguous float32 tensors; {name} is "
+                                 f"{t.dtype}{'' if t.is_contiguous() else ', not contiguous'}")
     if do.shape != q.shape or do.device != q.device:
         raise ValueError(f"do {tuple(do.shape)} must be shaped and placed as q {tuple(q.shape)}")
+    B, S, K, G, D = q.shape
+    T = k.shape[1]
     if D not in _HEAD_DIMS or bwd_smem_bytes(S, T, G, D) > BWD_SMEM_BYTES:
         raise ValueError(f"the attention backward kernel takes head widths {_HEAD_DIMS} and a head's q, k, v, dO "
                          f"and (S*G, T) tiles within {BWD_SMEM_BYTES} bytes of shared memory; got S={S}, T={T}, "
                          f"G={G}, D={D}")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if q.numel() == 0 or k.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    LIBRARY.call("repro_flash_attention_bwd_f32", ptr(q), ptr(k), ptr(v), ptr(do), ptr(dq), ptr(dk), ptr(dv),
-                 B, S, T, K, G, D, int(causal), int(q_offset), T if kv_len is None else int(kv_len),
-                 scale_for(D, q.dtype), stream_handle(q.device))
-    LAUNCHES["flash_attention_bwd"] += 1
-    return dq, dk, dv
+    return _launch_backward(q, k, v, do, _shape_args(q, T, causal, q_offset, kv_len))
 
 
 def attention_grads_plain(q, k, v, do, *, causal=True, q_offset: int = 0, kv_len: int | None = None):
@@ -151,20 +209,21 @@ def attention_grads_plain(q, k, v, do, *, causal=True, q_offset: int = 0, kv_len
 
 
 class _FlashAttentionF32(torch.autograd.Function):
-    """The float32 forward kernel with the backward kernel as its gradient."""
+    """The float32 forward kernel with the backward kernel as its gradient
+    (q, k and v were checked by :func:`flash_attention`; autograd hands the
+    backward a ``do`` of the output's shape, dtype and device)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, q_offset, kv_len):
+    def forward(ctx, q, k, v, shape_args):
         ctx.save_for_backward(q, k, v)
-        ctx.mask = (causal, q_offset, kv_len)
-        return _launch_forward(q, k, v, causal, q_offset, kv_len)
+        ctx.shape_args = shape_args
+        return _launch_f32(q, k, v, shape_args)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        causal, q_offset, kv_len = ctx.mask
-        dq, dk, dv = flash_attention_bwd(q, k, v, do.contiguous(), causal=causal, q_offset=q_offset, kv_len=kv_len)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = _launch_backward(q, k, v, do.contiguous(), ctx.shape_args)
+        return dq, dk, dv, None
 
 
 def flash_attention(q, k, v, *, causal=True, q_offset: int = 0, kv_len: int | None = None):
@@ -172,29 +231,36 @@ def flash_attention(q, k, v, *, causal=True, q_offset: int = 0, kv_len: int | No
     for CUDA tensors (with the backward kernel as the gradient when one is
     needed), the plain version for CPU tensors."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return attend_chunked(q, k, v, q_offset=q_offset, causal=causal, kv_len=kv_len)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return attend_chunked(q, k, v, q_offset=q_offset, causal=causal, kv_len=kv_len)
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, not {q.device}")
+    dtype = q.dtype
+    if dtype not in _HEAD_WIDTHS:
+        raise ValueError(f"the CUDA kernel takes float32 or bfloat16, not {dtype}")
+    if not (k.dtype == dtype and v.dtype == dtype and q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.dtype != dtype or not t.is_contiguous():
+                raise ValueError(f"the CUDA kernel takes contiguous q, k and v of one dtype; {name} is "
+                                 f"{t.dtype}{'' if t.is_contiguous() else ', not contiguous'}")
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if dtype == torch.float32:
+        shape_args = _shape_args(q, k.shape[1], causal, q_offset, kv_len)  # raises for a width or group not built
+        if not grad:
+            return _launch_f32(q, k, v, shape_args)
+        if bwd_smem_bytes(q.shape[1], k.shape[1], q.shape[3], q.shape[4]) > BWD_SMEM_BYTES:
+            raise ValueError(f"the attention backward kernel holds a head's tiles in {BWD_SMEM_BYTES} bytes of "
+                             f"shared memory: S={q.shape[1]}, T={k.shape[1]}, G={q.shape[3]}, D={q.shape[4]} do "
+                             f"not fit")
+        return _FlashAttentionF32.apply(q, k, v, shape_args)
     D, G = q.shape[4], q.shape[3]
-    if q.dtype not in _ENTRY:
-        raise ValueError(f"the CUDA kernel takes float32 or bfloat16, not {q.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != q.dtype or not t.is_contiguous():
-            raise ValueError(f"the CUDA kernel takes contiguous q, k and v of one dtype; {name} is "
-                             f"{t.dtype}{'' if t.is_contiguous() else ', not contiguous'}")
-    head_dims = _ENTRY[q.dtype][2]
+    head_dims = _HEAD_WIDTHS[dtype]
     if D not in head_dims or G > _MAX_GROUP:
-        raise ValueError(f"the {q.dtype} CUDA kernel takes head widths {head_dims} and groups <= {_MAX_GROUP}; "
+        raise ValueError(f"the {dtype} CUDA kernel takes head widths {head_dims} and groups <= {_MAX_GROUP}; "
                          f"got D={D}, G={G}")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the bf16 CUDA kernel reads q, k and v with 16-byte loads; their storage must be 16-byte "
                          "aligned")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if q.dtype != torch.float32:
-            raise ValueError(f"the attention backward kernel is float32 only; {q.dtype} with a gradient")
-        if bwd_smem_bytes(q.shape[1], k.shape[1], G, D) > BWD_SMEM_BYTES:
-            raise ValueError(f"the attention backward kernel holds a head's tiles in {BWD_SMEM_BYTES} bytes of "
-                             f"shared memory: S={q.shape[1]}, T={k.shape[1]}, G={G}, D={D} do not fit")
-        return _FlashAttentionF32.apply(q, k, v, causal, q_offset, kv_len)
-    return _launch_forward(q, k, v, causal, q_offset, kv_len)
+    if grad:
+        raise ValueError(f"the attention backward kernel is float32 only; {dtype} with a gradient")
+    return _launch_bf16(q, k, v, causal, q_offset, kv_len)

@@ -194,12 +194,17 @@ def test_decode_attention_rejects_an_empty_cache(dev):
         DA.decode_attention_kernelcall(q, kv, kv, 0)
 
 
-@pytest.mark.parametrize("kernel", ["flash_bf16", "decode_bf16", "decode_f32"])
+@pytest.mark.parametrize("kernel", ["flash_bf16", "decode_bf16", "decode_f32", "flash_f32", "flash_bwd_f32"])
 def test_attention_kernels_repeat_bit_for_bit(dev, kernel):
     if kernel == "flash_bf16":
         mk = _mk(np.random.default_rng(11), "bfloat16", dev)
         q, k, v = mk(2, 1792, 2, 7, 64), mk(2, 1792, 2, 64), mk(2, 1792, 2, 64)
         run = lambda: FA.flash_attention(q, k, v)
+    elif kernel.startswith("flash"):  # the predictor's shape
+        mk = _mk(np.random.default_rng(13), "float32", dev)
+        q, k, v, do = mk(256, 10, 2, 1, 32), mk(256, 10, 2, 32), mk(256, 10, 2, 32), mk(256, 10, 2, 1, 32)
+        run = (lambda: FA.flash_attention(q, k, v)) if kernel == "flash_f32" else \
+            (lambda: torch.cat([g.flatten() for g in FA.flash_attention_bwd(q, k, v, do)]))
     else:
         mk = _mk(np.random.default_rng(12), "bfloat16" if kernel == "decode_bf16" else "float32", dev)
         q, k, v = mk(2, 2, 7, 64), mk(2, 2048, 2, 64), mk(2, 2048, 2, 64)
@@ -515,3 +520,85 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="multiple"):
         TC.thrash_ce(torch.zeros(200, 32, device=dev), torch.zeros(200, dtype=torch.int32, device=dev),
                      torch.zeros(200, dtype=torch.bool, device=dev), 10)
+
+
+# the float32 forward's tiles (a block takes 64 query rows at D <= 16, 32 at
+# D 32, 16 at 64 and 8 at 128; keys in tiles of 32) and the backward's whole
+# head per block: rows and keys past one tile, G > 1 up to 128, q_offset,
+# kv_len < T, fully masked rows (kv_len 0; a negative q_offset), D 8 and 128
+F32_TILE_CASES = [
+    ((2, 40, 70, 1, 2, 16), {"q_offset": 30}),
+    ((1, 2, 70, 1, 128, 16), {"q_offset": 67}),
+    ((2, 10, 10, 2, 1, 32), {"kv_len": 0}),
+    ((2, 12, 12, 1, 1, 32), {"q_offset": -3}),
+    ((256, 10, 10, 2, 1, 8), {"causal": False, "kv_len": 6}),
+    ((2, 17, 65, 1, 1, 128), {"causal": False}),
+    ((2, 33, 33, 2, 1, 64), {"kv_len": 31}),
+]
+
+
+@pytest.mark.parametrize("shape,kw", F32_TILE_CASES)
+def test_flash_attention_f32_tiles_match_plain(dev, shape, kw):
+    q, k, v, do = _attn_bwd_inputs(dev, *shape, seed=sum(shape) + 5)
+    before = dict(kernels.LAUNCHES)
+    got = FA.flash_attention(q, k, v, **kw)
+    grads = FA.flash_attention_bwd(q, k, v, do, **kw)
+    assert kernels.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert kernels.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    torch.testing.assert_close(got, FA.attend_chunked(q, k, v, **kw), rtol=1e-5, atol=1e-6)
+    assert _attn_close(grads, FA.attention_grads_plain(q, k, v, do, **kw))
+
+
+def test_flash_attention_f32_takes_inputs_off_a_16_byte_boundary(dev):
+    """Contiguous q, k, v and dO that start 4 bytes past a 16-byte boundary
+    take the kernels' scalar loads, with the same bits as aligned copies."""
+    shape = (4, 10, 10, 2, 1, 32)
+    q, k, v, do = _attn_bwd_inputs(dev, *shape, seed=7)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=dev)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16 and out.is_contiguous()
+        return out
+
+    qs, ks, vs, dos = (shifted(t) for t in (q, k, v, do))
+    assert torch.equal(FA.flash_attention(qs, ks, vs), FA.flash_attention(q, k, v))
+    assert all(torch.equal(a, b) for a, b in zip(FA.flash_attention_bwd(qs, ks, vs, dos),
+                                                 FA.flash_attention_bwd(q, k, v, do)))
+
+
+def test_flash_attention_f32_launches_one_device_operation_per_call(dev):
+    """The forward and the backward are one kernel each, with nothing
+    launched beside them (the backward's three gradients share one
+    allocation, which launches nothing)."""
+    q, k, v, do = _attn_bwd_inputs(dev, 256, 10, 10, 2, 1, 32, seed=3)
+    assert _device_ops(lambda: FA.flash_attention(q, k, v)) == 1
+    assert _device_ops(lambda: FA.flash_attention_bwd(q, k, v, do)) == 1
+
+
+def test_flash_attention_f32_kernels_do_not_spill_at_head_widths_up_to_64(dev, tmp_path):
+    """``ptxas -v`` reports no spill stores or loads for the float32 forward
+    and backward at D 8, 16, 32 and 64 (the log ``chip_smoke.py`` prints)."""
+    import re
+    import subprocess
+
+    from repro_torch.kernels._lib import CSRC, LIBRARY, NVCC_FLAGS
+
+    seen = {}
+    for src in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        out = subprocess.run([LIBRARY.nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(CSRC / src), "-o",
+                              str(tmp_path / (src + ".o"))], capture_output=True, text=True)
+        assert out.returncode == 0, out.stderr
+        entry = None
+        for line in (out.stdout + out.stderr).splitlines():
+            m = re.search(r"Compiling entry function '.*(fa_(?:fwd|bwd)_kernel)ILi(\d+)E", line)
+            if m:
+                entry = (m[1], int(m[2]))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and entry:  # every instantiation at this width (aligned or not)
+                seen[entry] = seen.get(entry, 0) + int(m[1]) + int(m[2])
+                entry = None
+    for name in ("fa_fwd_kernel", "fa_bwd_kernel"):
+        for D in (8, 16, 32, 64):
+            assert seen[(name, D)] == 0, f"{name}<{D}> spills {seen[(name, D)]} bytes"
