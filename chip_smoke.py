@@ -35,7 +35,10 @@ Phases, in order; any failure exits non-zero:
               the float32 attention forward's output and the backward's
               dQ, dK and dV at the predictor's shape equal, by SHA-256
               (``FA_SHA``), to the serial kernels' they replaced, with one
-              device operation per call of each.
+              device operation per call of each; ``ssd_scan``'s blocks per
+              launch of each of its three kernels (read from the profiler;
+              at least 132 in the two chunk-parallel ones at the serve
+              shape) and its float32 instance timed beside the bf16 one.
 4. main     — the paper's online loop, ``repro_torch.uvm.runtime.run_ours``,
               on Hotspot at scale 1.0 and 150% oversubscription with the
               paper-width predictor (``CONFIG``), ``TrainConfig(2048, 0,
@@ -108,11 +111,11 @@ versions of the kernel, unpack the other checkout into a directory that
 
 With ``--time-kernels LABEL`` the script runs phases 1 and 2, then phase
 3's rows of ``evict_select``, ``freq_update``/``freq_lookup``, the float32
-``flash_attention`` forward and backward and ``thrash_ce`` (each time the
-median of five), the wrappers' host microseconds per step, and the SHA-256
-of ``thrash_ce``'s loss and gradient and of the float32 attention's output
-and gradients on phase 3's inputs, and prints them
-as one JSON line headed LABEL.  Copy this script into the other checkout so
+``flash_attention`` forward and backward, ``ssd_scan`` and ``thrash_ce``
+(each time the median of five), the wrappers' host microseconds per step,
+and the SHA-256 of ``thrash_ce``'s loss and gradient and of the float32
+attention's output and gradients on phase 3's inputs, and prints them as
+one JSON line headed LABEL.  Copy this script into the other checkout so
 that both versions are timed by the same code, and run them in turns.
 ``--time-training LABEL`` does the same for the training path: phase 7
 (a)'s fine-tune group five times and the fine-tuned ``run_ours`` once, host
@@ -658,7 +661,8 @@ def time_flash_bf16(dev, label: str) -> None:
 
 
 TIMED_KEYS = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "ms_n64", "device_ms_n64",
-              "device_ms_n0", "copy_ms", "copy_share", "skewed_ms", "skewed_device_ms", "device_ops_per_call",
+              "device_ms_n0", "copy_ms", "copy_share", "skewed_ms", "skewed_device_ms", "ms_f32", "device_ms_f32",
+              "blocks", "device_ops_per_call",
               "device_ms_all_ops", "step_ms", "step_library_ms", "step_device_ops_per_call", "step_device_ms_all_ops",
               "loss_sha", "grad_sha", "sha")
 
@@ -670,7 +674,7 @@ def time_kernels(dev, label: str) -> None:
     global TIMING_REPEATS
     TIMING_REPEATS = 5
     rows = [kernel_evict_select(dev), *kernel_freq_table(dev), kernel_flash_attention(dev),
-            kernel_flash_attention_bwd(dev), *kernel_thrash_ce(dev)]
+            kernel_flash_attention_bwd(dev), kernel_ssd_scan(dev), *kernel_thrash_ce(dev)]
     out = {r["name"]: {k: r[k] for k in TIMED_KEYS if k in r} for r in rows}
     print(f"{label}: " + json.dumps({"rows": out, "host_us": wrapper_host_us(dev), "card": nvidia_smi_line()}))
 
@@ -847,14 +851,25 @@ def kernel_ssd_scan(dev) -> dict:
     # C . B^T once per (batch, chunk), causal pairs; per head the causal w . x,
     # C . state and the state update
     flops = B * nc * (Q * (Q + 1) * N + H * (Q * (Q + 1) * P + 4 * Q * N * P))
+    grids: dict = {}
+    dev_ms = device_ms(run, "ssd_scan", iters=10, grids=grids)
+    if grids:  # the chunks run in parallel: every kernel but the pass over the chunks fills the 132 SMs
+        chunk_parallel = [k for k in KERNEL_SYMBOLS["ssd_scan"] if k != "ssd_pass_kernel"]
+        check(set(grids) == set(KERNEL_SYMBOLS["ssd_scan"]) and min(min(grids[k]) for k in chunk_parallel) >= 132,
+              f"ssd_scan launched {grids} blocks per kernel at the serve shape")
+    print(f"  ssd_scan: blocks per launch at the serve shape, from the profiler: {grids or 'not recorded'}")
+    # the float32 instance at the same shape (phase 6's float32 run)
+    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
+    run_f32 = lambda: S.ssd_scan(xf, dtf, A_log, bf, cf, chunk=Q)
     return {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:67", "max_abs_err": worst["y"],
             "ms": time_cuda(run, 20, warmup=3),
             "plain_ms": time_cuda(lambda: S.ssd_scan_plain(x, dt, A_log, b, c, Q), 5, warmup=2),
             "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS else "operations",
-            "library_ms": None, "device_ms": device_ms(run, "ssd_scan", iters=10),
-            "shape": f"B {B}, L {L}, H {H}, P {P}, N {N}, chunk {Q}, bf16"}
+            "library_ms": None, "device_ms": dev_ms, "blocks": grids or None,
+            "ms_f32": time_cuda(run_f32, 20, warmup=3), "device_ms_f32": device_ms(run_f32, "ssd_scan", iters=10),
+            "shape": f"B {B}, L {L}, H {H}, P {P}, N {N}, chunk {Q}, bf16 (and float32: ms_f32, device_ms_f32)"}
 
 
 THRASH_SHAPES = ((256, 1024, 700), (32, 32, 20))  # (B, V, n_active): CONFIG's fine-tune, the serving manager's
@@ -1268,7 +1283,8 @@ KERNEL_SYMBOLS = {"evict_select": ("evict_select_kernel",), "freq_update": ("fre
                   "freq_lookup": ("freq_lookup_kernel",), "flash_attention": ("fa_fwd_kernel",),
                   "flash_attention_bf16": ("fa_wgmma_fwd_kernel",), "flash_attention_bwd": ("fa_bwd_kernel",),
                   "decode_attention": ("decode_scores_kernel", "decode_pv_kernel"),
-                  "ssd_scan": ("ssd_scan_kernel",), "thrash_ce_fwd": ("thrash_ce_fwd_kernel",),
+                  "ssd_scan": ("ssd_states_kernel", "ssd_pass_kernel", "ssd_y_kernel"),
+                  "thrash_ce_fwd": ("thrash_ce_fwd_kernel",),
                   "thrash_ce_bwd": ("thrash_ce_bwd_kernel",)}
 
 
@@ -1859,7 +1875,7 @@ def main() -> int:
                     help="after the build, only time the bf16 flash kernel and print one line headed LABEL")
     ap.add_argument("--time-kernels", metavar="LABEL",
                     help="after the build, only run phase 3's rows of evict_select, freq_table, the float32 "
-                         "flash_attention forward and backward and thrash_ce, and the wrappers' host steps, "
+                         "flash_attention forward and backward, ssd_scan and thrash_ce, and the wrappers' host steps, "
                          "and print one JSON line headed LABEL")
     ap.add_argument("--time-training", metavar="LABEL",
                     help="after the build, only time phase 7's fine-tune group (five times) and the fine-tuned "
@@ -1916,6 +1932,8 @@ def main() -> int:
         es, tf = by_name["evict_select"], by_name["thrash_ce_fwd"]
         print(f"  evict_select at n_evict 64: {es['ms_n64']:.4f} ms/call (device {es['device_ms_n64']}); at 0: "
               f"device {es['device_ms_n0']}")
+        ss = by_name["ssd_scan"]
+        print(f"  ssd_scan in float32 at the same shape: {ss['ms_f32']:.4f} ms/call (device {ss['device_ms_f32']})")
         print(f"  thrash_ce step (forward + backward through autograd): {tf['step_ms']:.4f} ms, cross_entropy's "
               f"{tf['step_library_ms']:.4f} ms; device operations per forward {tf['device_ops_per_call']}, per "
               f"step {tf['step_device_ops_per_call']}")

@@ -39,8 +39,8 @@ _SIGNATURES = {
     "repro_flash_attention_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P),
     "repro_decode_attention_f32": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F, _P),
     "repro_decode_attention_bf16": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F, _P),
-    "repro_ssd_scan_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "repro_ssd_scan_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "repro_ssd_scan_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "repro_ssd_scan_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "repro_thrash_ce_fwd_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     "repro_thrash_ce_bwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
 }

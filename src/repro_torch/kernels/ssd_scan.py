@@ -4,7 +4,9 @@ Port of ``repro.kernels.ssd_scan`` (TPU kernel ``ssd_pallas``,
 ``src/repro/kernels/ssd_scan/kernel.py:67``).  CUDA kernel:
 ``src/repro_torch/csrc/ssd_scan.cu`` (float32 and bf16 inputs, head widths
 P a multiple of 16, state widths N of 16, 32, 64 or 128, chunks of at most
-``MAX_CHUNK`` tokens).
+``MAX_CHUNK`` tokens): three launches per call, the chunks in parallel
+(each chunk's own state, a pass over the chunks for the incoming states,
+then y), through a float32 scratch the wrapper allocates.
 
 Per (batch, head) the chunks run in order from a zero state.  For a chunk
 with ``cum = cumsum(dt * a)``, ``a = -exp(A_log)``::
@@ -108,11 +110,15 @@ def ssd_scan(x, dt, A_log, b, c, *, chunk: int, initial_state=None):
         raise ValueError(f"the CUDA kernel takes head widths P a multiple of 16, state widths N in "
                          f"{_STATE_WIDTHS} and chunks of at most {MAX_CHUNK}; got P={P}, N={N}, chunk={chunk}")
     a_log = A_log.float().contiguous()  # a widening copy of H numbers (none for float32)
+    # the kernels copy x, b and c 16 bytes at a time: a view off that boundary is copied once
+    x, b, c = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, b, c))
     y = torch.empty_like(x)
     state = torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y, state.zero_()
+    # each chunk's state (its contribution, then its incoming state) and cum
+    scratch = torch.empty(Bb * (L // chunk) * H * (P * N + chunk), dtype=torch.float32, device=x.device)
     LIBRARY.call(_LAUNCHERS[x.dtype], ptr(x), ptr(dt), ptr(a_log), ptr(b), ptr(c), ptr(y), ptr(state),
-                 Bb, L, H, P, N, chunk, stream_handle(x.device))
+                 ptr(scratch), Bb, L, H, P, N, chunk, stream_handle(x.device))
     LAUNCHES["ssd_scan"] += 1
     return y, state

@@ -48,6 +48,53 @@ def test_evict_select_matches_plain(dev, nb, n_keys):
             assert int(got.sum()) == min(n, n_cand)
 
 
+def _freq_stream(kind, rng, n_sets):
+    """The streams of tests/test_torch_freq_table.py (which emulates the
+    kernel's order of work on them on the CPU)."""
+    if kind == "long_runs":  # runs of 33-100 entries, and one of 5,000 across two tile boundaries
+        runs = [np.full(rng.integers(33, 101), rng.integers(0, 4 * n_sets)) for _ in range(40)]
+        runs.insert(7, np.full(5000, 3 * n_sets + 5))
+        return np.concatenate(runs)
+    if kind == "distinct":  # one set hit by 300 distinct blocks, interleaved with others
+        hot = 3 * n_sets // 4 + n_sets * rng.permutation(300)
+        return np.where(rng.random(3000) < 0.6, hot[rng.integers(0, 300, 3000)], rng.integers(0, 8 * n_sets, 3000))
+    b = rng.integers(-3 * n_sets, 2 * n_sets, 4500)  # saturating blocks, -1 padding, other negative no-ops
+    b[rng.random(4500) < 0.35] = 7
+    b[rng.random(4500) < 0.1] = -1
+    b[-300:] = -1
+    return b
+
+
+@pytest.mark.parametrize("n_sets", [1024, 24])
+@pytest.mark.parametrize("kind", ["long_runs", "distinct", "saturate_pad"])
+def test_freq_update_runs_and_distinct_blocks_match_plain(dev, kind, n_sets):
+    rng = np.random.default_rng(len(kind) * 31 + n_sets)
+    tags = torch.full((n_sets, 16), -1, dtype=torch.int32, device=dev)
+    cnt = torch.zeros((n_sets, 16), dtype=torch.int32, device=dev)
+    for _ in range(2):
+        blocks = torch.tensor(_freq_stream(kind, rng, n_sets).astype(np.int32), device=dev)
+        want_t, want_c = FT.freq_update_plain(tags, cnt, blocks)
+        FT.freq_update(tags, cnt, blocks)
+        assert torch.equal(tags, want_t) and torch.equal(cnt, want_c)
+    if kind != "distinct":
+        assert int(cnt.max()) == FT.COUNTER_MAX
+
+
+def test_freq_update_takes_a_stream_off_a_16_byte_boundary(dev):
+    """Each lane reads eight entries, 16 bytes at a time where it can: a
+    view into a larger buffer reads them one by one, with the same bits."""
+    rng = np.random.default_rng(8)
+    b = _freq_stream("distinct", rng, 1024).astype(np.int32)
+    buf = torch.empty(b.size + 1, dtype=torch.int32, device=dev)
+    view = buf[1:]
+    view.copy_(torch.tensor(b, device=dev))
+    tags = torch.full((1024, 16), -1, dtype=torch.int32, device=dev)
+    cnt = torch.zeros((1024, 16), dtype=torch.int32, device=dev)
+    want_t, want_c = FT.freq_update_plain(tags, cnt, view)
+    FT.freq_update(tags, cnt, view)
+    assert torch.equal(tags, want_t) and torch.equal(cnt, want_c)
+
+
 @pytest.mark.parametrize("n", [1, 64, 2048, 5000])
 def test_freq_table_matches_plain(dev, n):
     rng = np.random.default_rng(n)
@@ -283,6 +330,10 @@ def _ssd_close(got, want, dtype) -> None:
     (2, 128, 4, 16, 32, 32, 0.0),
     (1, 64, 2, 32, 16, 16, 0.0),
     (1, 200, 2, 48, 64, 100, 0.0),  # chunks of 100: ragged tiles; P 48: slices of 16
+    (1, 256, 2, 64, 128, 256, 0.0),  # one chunk (L = Q), B * H = 2
+    (2, 64, 1, 32, 64, 64, 0.0),  # one chunk, B * H = 2, P 32
+    (1, 1024, 2, 64, 128, 1024, 0.0),  # the longest chunk: 16 row tiles
+    (1, 512, 2, 128, 32, 128, 0.0),  # P 128: two slices of 64
 ])
 def test_ssd_scan_matches_plain(dev, dtype, B, L, H, P, N, chunk, dt_shift):
     args = _ssd_inputs(dev, dtype, B, L, H, P, N, seed=L + P + N, dt_shift=dt_shift)
@@ -292,6 +343,27 @@ def test_ssd_scan_matches_plain(dev, dtype, B, L, H, P, N, chunk, dt_shift):
     assert got[0].dtype == args[0].dtype and got[1].dtype == torch.float32
     assert torch.isfinite(got[0].float()).all() and torch.isfinite(got[1]).all()
     _ssd_close(got, SS.ssd_scan_plain(*args, chunk), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_repeats_bit_for_bit_and_takes_unaligned_views(dev, dtype):
+    """No atomics: a call repeats bit for bit.  x, b and c off a 16-byte
+    boundary (views into a larger buffer) give the same bits."""
+    args = _ssd_inputs(dev, dtype, 2, 512, 4, 64, 128, seed=3)
+    y, st = SS.ssd_scan(*args, chunk=256)
+    for _ in range(3):
+        y2, st2 = SS.ssd_scan(*args, chunk=256)
+        assert torch.equal(y, y2) and torch.equal(st, st2)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    x, dt, A_log, b, c = args
+    y3, st3 = SS.ssd_scan(shifted(x), dt, A_log, shifted(b), shifted(c), chunk=256)
+    assert torch.equal(y, y3) and torch.equal(st, st3)
 
 
 def _ssd_no_carry(x, dt, A_log, b, c, chunk):

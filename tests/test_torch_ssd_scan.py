@@ -19,6 +19,13 @@ Tolerances, each with its reason:
   limit for its chunked reference.
 * bf16 against ``ssd_ref``: 5e-2, the JAX suite's own limit (``ssd_ref``
   rounds the state and its weights to bf16 where the kernel keeps float32).
+
+The CUDA kernel's arithmetic is rehearsed here too (``_rehearse``): each
+chunk's own state from zero, the pass over the chunks for the incoming
+states, and y from C . B^T computed once per (batch, chunk), with the float32
+operand of each bf16 tensor-core product (the state, w, co . x) split into
+three bf16 parts as the card does (torch's bf16 rounding), or rounded once
+to show why it is split.
 """
 from __future__ import annotations
 
@@ -39,6 +46,9 @@ SWEEP = [
     (2, 96, 3, 8, 64, 32, "float32"),
     (1, 128, 4, 16, 32, 64, "bfloat16"),
     (1, 256, 4, 64, 128, 64, "bfloat16"),
+    # chunks of 100 (ragged 16-row tiles on the card); one chunk (no state carried in)
+    (1, 200, 2, 48, 64, 100, "float32"),
+    (2, 64, 2, 16, 32, 64, "bfloat16"),
 ]
 F32_TOL = {"y": (1e-5, 1e-4), "state": (1e-5, 1e-5)}
 BF16_TOL = {"y": (2.0 ** -7, 1e-3), "state": (1e-5, 1e-4)}
@@ -171,3 +181,108 @@ def test_the_kernel_limits_reject_a_defective_plain_version(dtype, defect):
     ok_y = torch.allclose(y_bad.float(), y.float(), rtol=tol["y"][0], atol=tol["y"][1])
     ok_s = torch.allclose(state_bad, state, rtol=tol["state"][0], atol=tol["state"][1])
     assert not (ok_y and ok_s)
+
+
+# --- the CUDA kernel's order of work, rehearsed ---------------------------------
+
+
+def _split3(v):
+    """v (float32) as three bf16 values in float32, hi + mid + lo == v
+    exactly: the card's split of a float32 tensor-core operand.  Exact bar
+    remainders below float32's normal range (under 1.2e-38), which torch's
+    bf16 rounding flushes to zero."""
+    h = v.bfloat16().float()
+    r = v - h
+    m = r.bfloat16().float()
+    lo = r - m
+    normal = lo.abs() >= torch.finfo(torch.float32).tiny
+    assert torch.equal(lo.bfloat16().float()[normal], lo[normal])  # the remainder is a bf16: nothing is lost
+    return h, m, lo.bfloat16().float()
+
+
+def _parts(v, how):
+    """The operand as the tensor cores see it: ``three`` parts (exact),
+    rounded ``once`` to bf16, or ``float32`` (CUDA cores)."""
+    return {"three": _split3, "once": lambda t: (t.bfloat16().float(),), "float32": lambda t: (t,)}[how](v)
+
+
+def _einsum(eq, a, b, how):
+    """float32 einsum with ``a`` (the float32 operand) in ``how`` parts and
+    ``b`` as it is; the parts' products summed in float32."""
+    out = None
+    for part in _parts(a, how):
+        r = torch.einsum(eq, part, b)
+        out = r if out is None else out + r
+    return out
+
+
+def _rehearse(x, dt, A_log, b, c, chunk, *, state="three", w="three", u="three"):
+    """The kernel's algorithm on the CPU: (1) every chunk's own state from
+    zero, (u^T . B with u = co * x, co_q = exp(cum_last - cum_q) * dt_q);
+    (2) the pass s_c = s_{c-1} * exp(cum_last_c) + contrib_c, keeping each
+    chunk's incoming state; (3) y = exp(cum_i) * (C . s_in) + (w . x), w
+    from C . B^T computed once per (batch, chunk).  ``state``, ``w`` and
+    ``u`` say how each float32 operand meets its bf16 partner."""
+    Bb, L, H, P = x.shape
+    N, nc, Q = b.shape[-1], L // chunk, chunk
+    xq = x.float().reshape(Bb, nc, Q, H, P)
+    dtq = dt.float().reshape(Bb, nc, Q, H)
+    bq, cq = b.float().reshape(Bb, nc, Q, N), c.float().reshape(Bb, nc, Q, N)
+    a = -torch.exp(A_log.float())
+    cum = torch.cumsum(dtq * a, dim=2)  # (B, nc, Q, H)
+    cum_last = cum[:, :, -1]  # (B, nc, H)
+    co = torch.exp(cum_last[:, :, None] - cum) * dtq
+    contrib = _einsum("bcqhp,bcqn->bchpn", co[..., None] * xq, bq, u)
+    s = torch.zeros((Bb, H, P, N))
+    s_in = []
+    for k in range(nc):
+        s_in.append(s)
+        s = s * torch.exp(cum_last[:, k])[:, :, None, None] + contrib[:, k]
+    s_in = torch.stack(s_in, 1)  # (B, nc, H, P, N)
+    y_inter = _einsum("bchpn,bcin->bcihp", s_in, cq, state) * torch.exp(cum)[..., None]
+    scores = torch.einsum("bcin,bcjn->bcij", cq, bq)  # once per (batch, chunk)
+    mask = torch.ones((Q, Q), dtype=torch.bool).tril()
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, i, j, H)
+    ww = torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0) * scores[..., None] * dtq[:, :, None]
+    y_intra = _einsum("bcijh,bcjhp->bcihp", ww, xq, w)
+    y = (y_inter + y_intra).reshape(Bb, L, H, P).to(x.dtype)
+    return y, s
+
+
+def _within(got, want, tol) -> bool:
+    return (torch.allclose(got[0].float(), want[0].float(), rtol=tol["y"][0], atol=tol["y"][1])
+            and torch.allclose(got[1], want[1], rtol=tol["state"][0], atol=tol["state"][1]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rehearsal_matches_plain_at_the_kernel_limits(dtype):
+    """At the serve widths (H 32, P 64, N 128, chunk 256; two chunks) the
+    card's order of work, with the bf16 instance's three-part split (the
+    float32 instance multiplies on CUDA cores), is within the limits the
+    card is held to."""
+    _, args = _both(_inputs(1, 512, 32, 64, 128, seed=12), dtype)
+    how = "three" if dtype == "bfloat16" else "float32"
+    got = _rehearse(*args, 256, state=how, w=how, u=how)
+    assert _within(got, S.ssd_scan_plain(*args, 256), KERNEL_TOL[dtype])
+
+
+@pytest.mark.parametrize("B,L,H,P,N,chunk,dtype", SWEEP)
+def test_rehearsal_matches_the_tpu_kernel(B, L, H, P, N, chunk, dtype):
+    (jx, jdt, ja, jb, jc), targs = _both(_inputs(B, L, H, P, N, seed=2), dtype)
+    jy, js = JK.ssd_pallas(jx, jdt, ja, jb, jc, chunk=chunk, interpret=True)
+    how = "three" if dtype == "bfloat16" else "float32"
+    py, ps = _rehearse(*targs, chunk, state=how, w=how, u=how)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(_np(py), _np(jy), rtol=tol["y"][0], atol=tol["y"][1])
+    np.testing.assert_allclose(_np(ps), _np(js), rtol=tol["state"][0], atol=tol["state"][1])
+
+
+@pytest.mark.parametrize("operand", ["w", "state", "u"])
+def test_one_bf16_rounding_of_a_float32_operand_fails_the_kernel_limits(operand):
+    """Why the card splits: rounding w, the incoming state or co . x once
+    to bf16 (as TF32 or a plain bf16 cast would) puts y or the state far
+    outside the limits at the serve widths, where the three-part split is
+    inside them (the test above)."""
+    _, args = _both(_inputs(1, 512, 32, 64, 128, seed=12), "bfloat16")
+    got = _rehearse(*args, 256, **{operand: "once"})
+    assert not _within(got, S.ssd_scan_plain(*args, 256), KERNEL_TOL["bfloat16"])
