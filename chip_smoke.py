@@ -98,6 +98,21 @@ Phases, in order; any failure exits non-zero:
               (``experiments/torch/serve_manager_ref.npz``) with equal stats
               and prefetches, then a free qwen2-0.5b run with it (tokens by
               the fork rule, the training kernels launched).
+8. tables   — the paper's Tables I-IV and VI through the port's runner
+              (``repro_torch.bench.tables``) at the ``paper`` preset (the
+              11 benchmarks at scale 1.0, 125% oversubscription), against
+              the JAX package's cells and rows (``experiments/torch/
+              tables_paper_ref.json``): (a) the five simulator cells of each
+              benchmark and its UVMSmart run, every counter equal; (b) the
+              frozen ``ours`` (``TrainConfig(2048, 0, 256)``): stats, top-1
+              and prediction count equal, and every row of Tables I-IV and
+              of Table VI equal; (c) the fine-tuned ``ours`` on the nine
+              benchmarks of ``TABLES_TUNED`` within phase 7 (b)'s limits;
+              (d) each column's host seconds, compressed events and launches
+              (``evict_select`` in every column; ``freq_update`` and
+              ``flash_attention`` in both ``ours`` columns; the training
+              kernels in the fine-tuned one), and a profiled Hotspot
+              ``lru`` + ``tree`` cell.
 
 The last lines are the card's ``nvidia-smi`` line, a ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -1867,6 +1882,145 @@ def serve_manager_check(dev, eng, prompt) -> dict:
     return launches
 
 
+# --- phase 8: the paper's tables ---------------------------------------------------
+
+TABLES_REF = ROOT / "experiments" / "torch" / "tables_paper_ref.json"
+# (c): the fine-tuned ``ours`` on the nine benchmarks of at most 8,192
+# accesses (all but Hotspot and Srad-v2; four of them open the prefetch gate,
+# so the frequency table trains too), within phase 7 (b)'s limits; a counter
+# whose reference is 0 must be 0
+TABLES_TUNED = ("ATAX", "BICG", "MVT", "Backprop", "NW", "Pathfinder", "StreamTriad", "AddVectors", "2DCONV")
+
+
+def _rel(got: int, want: int) -> float:
+    return abs(got - want) / want if want else float(got != want)
+
+
+def tables_columns(dev, ctx, tuned) -> dict:
+    """Phase 8's columns, each over its benchmarks with every launch count
+    set to 0 just before and read just after: host seconds (up to a
+    synchronise), compressed events walked, launches."""
+    from repro_torch import kernels
+    from repro_torch.bench import tables as TB
+    from repro_torch.uvm import simulator as S
+
+    walked = [0]
+    scan = S._scan_events
+
+    def counting(state, ev, *a):
+        walked[0] += len(ev.blk)
+        return scan(state, ev, *a)
+
+    columns = {}
+
+    def column(name, benches, fn):
+        _sync(dev)
+        kernels.reset_launches()
+        walked[0] = 0
+        t0 = time.perf_counter()
+        for b in benches:
+            fn(b)
+        _sync(dev)
+        columns[name] = {"host_s": time.perf_counter() - t0, "events": walked[0], "benchmarks": len(benches),
+                         "launches": dict(kernels.LAUNCHES)}
+
+    S._scan_events = counting
+    try:
+        for p, f in TB.STANDARD_CELLS:
+            column(f"{p}+{f}", ctx.benches, lambda b, p=p, f=f: ctx.sim(b, p, f))
+        column("uvmsmart", ctx.benches, ctx.uvmsmart)
+        column("ours_frozen", ctx.benches, ctx.ours)
+        column("ours_fine_tuned", tuned.benches, tuned.ours)
+    finally:
+        S._scan_events = scan
+    return columns
+
+
+def table_launch_checks(columns: dict) -> None:
+    """Every column launched ``evict_select``; both ``ours`` columns the
+    frequency table's update and the attention; the fine-tuned one the
+    training kernels."""
+    for name, col in columns.items():
+        check(col["launches"]["evict_select"] > 0, f"the {name} column never launched evict_select")
+    for name in ("ours_frozen", "ours_fine_tuned"):
+        for k in ("freq_update", "flash_attention"):
+            check(columns[name]["launches"][k] > 0, f"the {name} column never launched {k}")
+    for k in ("thrash_ce_fwd", "thrash_ce_bwd", "flash_attention_bwd"):
+        check(columns["ours_fine_tuned"]["launches"][k] > 0, f"the fine-tuned ours never launched {k}")
+
+
+def tables_path(dev) -> dict:
+    """Phase 8: the port's table runner at the paper preset and x1.25 over the
+    11 benchmarks against the JAX package's cells and rows
+    (``experiments/torch/tables_paper_ref.json``).  Returns the launches of
+    all its columns together."""
+    from repro_torch.bench import tables as TB
+    from repro_torch.core.incremental import TrainConfig
+    from repro_torch.uvm import simulator as S
+
+    ref = json.loads(TABLES_REF.read_text())
+    check((ref["preset"], ref["scale"], ref["cap"], ref["oversubscription"]) == ("paper", *TB.SCALE_PRESETS["paper"], 1.25),
+          "the reference file is not the paper preset at x1.25")
+    ctx = TB.Context("paper", frozen=True, device=dev)
+    tuned = ctx.with_train(TrainConfig(**ref["train"]["fine_tuned"]), benches=list(TABLES_TUNED))
+    check(list(ref["benchmarks"]) == ctx.benches and dataclasses.asdict(ctx.tcfg) == ref["train"]["frozen"],
+          "the reference's benchmarks or frozen schedule are not the runner's")
+    columns = tables_columns(dev, ctx, tuned)
+    print("  columns: " + json.dumps({k: {f: v[f] for f in ("host_s", "events", "benchmarks")}
+                                       for k, v in columns.items()}))
+    # (a) every simulator cell and UVMSmart, every counter
+    bad = []
+    for b in ctx.benches:
+        want = ref["benchmarks"][b]
+        bad += [(b, cell, st, want["sim"][cell]) for cell, st in ctx.sims(b).items() if st != want["sim"][cell]]
+        if ctx.uvmsmart(b) != want["uvmsmart"]:
+            bad.append((b, "uvmsmart", ctx.uvmsmart(b), want["uvmsmart"]))
+    check(not bad, f"simulator or UVMSmart cells differ from the JAX package's: {bad}")
+    # (b) the frozen ours: stats, top-1 and prediction count equal
+    for b in ctx.benches:
+        r, w = ctx.ours(b), ref["benchmarks"][b]["ours_frozen"]
+        if (r.stats, r.top1, r.n_predictions) != (w["stats"], w["top1"], w["n_predictions"]):
+            bad.append((b, r.stats, r.top1, r.n_predictions, w))
+    check(not bad, f"the frozen ours differs from the JAX package's: {bad}")
+    print(f"  (a) {len(ctx.benches)} x {len(TB.STANDARD_CELLS)} simulator cells and {len(ctx.benches)} UVMSmart "
+          f"runs, (b) {len(ctx.benches)} frozen ours: equal to the JAX package's")
+    for name in ("table1", "table2", "table3", "table4"):
+        check(getattr(TB, name)(ctx) == ref["tables"][name], f"{name}'s rows differ from the JAX package's")
+    check(TB.table6(ctx) == ref["tables"]["table6_frozen"], "Table VI's rows (frozen ours) differ from the JAX package's")
+    # (c) the fine-tuned ours on the subset, within phase 7 (b)'s limits
+    dist = {}
+    for b in tuned.benches:
+        r, w = tuned.ours(b), ref["benchmarks"][b]["ours_fine_tuned"]
+        dist[b] = {"stats": r.stats, "top1": r.top1, "top1_diff": abs(r.top1 - w["top1"]),
+                   "stats_rtol": {k: _rel(r.stats[k], w["stats"][k]) for k in ("pages_thrashed", "faults",
+                                                                                "migrated_blocks")},
+                   "n_predictions_equal": r.n_predictions == w["n_predictions"],
+                   "occupancy_equal": r.stats["occupancy"] == w["stats"]["occupancy"],
+                   "first_groups_acc_diff": max(abs(x - y) for x, y in zip(r.per_group_acc[:RUN_GROUPS_HELD],
+                                                                           w["per_group_acc"][:RUN_GROUPS_HELD]))}
+    print("  (c) fine-tuned ours: " + json.dumps(dist))
+    for b, d in dist.items():
+        check(d["n_predictions_equal"] and d["occupancy_equal"], f"{b}: prediction count or occupancy differ")
+        check(d["top1_diff"] <= RUN_TOP1_ATOL, f"{b}: top-1 {d['top1']} is {d['top1_diff']} from the reference's")
+        check(max(d["stats_rtol"].values()) <= RUN_STATS_RTOL, f"{b}: counters off by rtol {d['stats_rtol']}")
+        check(d["first_groups_acc_diff"] <= RUN_GROUP_ACC_ATOL, f"{b}: the first groups' accuracies differ by "
+              f"{d['first_groups_acc_diff']}")
+    rows = TB.table6(tuned)
+    want_red = [1 - ref["benchmarks"][b]["ours_fine_tuned"]["stats"]["pages_thrashed"] / r["baseline"]
+                for b, r in zip(tuned.benches, rows[1:]) if r["baseline"] > 0]
+    print(f"  (c) Table VI over {tuned.benches}, fine-tuned: average reduction {rows[0]['ours']} (the JAX package's "
+          f"on the same rows {round(sum(want_red) / max(len(want_red), 1), 3)}); frozen over all 11: "
+          f"{ref['tables']['table6_frozen'][0]['ours']}")
+    # (d) launches per column, and where the device time of one tree cell goes
+    print("  launches: " + json.dumps({k: {n: c for n, c in v["launches"].items() if c}
+                                        for k, v in columns.items()}))
+    table_launch_checks(columns)
+    got = profile_run("Hotspot lru+tree", lambda: S.run_batch(ctx.trace("Hotspot"), [("lru", "tree", 1.25)],
+                                                                device=dev))
+    check(got == [ref["benchmarks"]["Hotspot"]["sim"]["lru+tree"]], "the profiled Hotspot lru+tree cell differs")
+    return {k: sum(c["launches"][k] for c in columns.values()) for k in next(iter(columns.values()))["launches"]}
+
+
 def main() -> int:
     import argparse
 
@@ -1900,13 +2054,13 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
         smi = nvidia_smi_line()
-        print(f"[1/7] device: {name} (count {count}); nvidia-smi: {smi}")
+        print(f"[1/8] device: {name} (count {count}); nvidia-smi: {smi}")
         print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
         t0 = time.perf_counter()
         LIBRARY.cdll()
         how = "built" if LIBRARY.build_seconds is not None else "loaded the existing build"
-        print(f"[2/7] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
+        print(f"[2/8] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
         for line in LIBRARY.ptxas_log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line or line.startswith("=="):
                 print("      " + line.strip())
@@ -1920,7 +2074,7 @@ def main() -> int:
             time_training(dev, args.time_training)
             return 0
 
-        print(f"[3/7] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
+        print(f"[3/8] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
         rows = [kernel_evict_select(dev), *kernel_freq_table(dev), kernel_flash_attention(dev),
                 kernel_flash_attention_bf16(dev), kernel_flash_attention_bwd(dev), kernel_decode_attention(dev),
                 kernel_ssd_scan(dev), *kernel_thrash_ce(dev)]
@@ -1939,16 +2093,16 @@ def main() -> int:
               f"step {tf['step_device_ops_per_call']}")
 
         by_path = {}
-        print(f"[4/7] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
+        print(f"[4/8] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         _, by_path["run_ours"] = main_path(dev)
-        print(f"[5/7] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
+        print(f"[5/8] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["serve"], qwen2_engine, qwen2_prompt = serve_path(dev)
-        print(f"[6/7] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
+        print(f"[6/8] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["serve_mamba2"] = serve_mamba2_path(dev)
-        print(f"[7/7] train: one train_group, the fine-tuned run_ours (Hotspot x1.5, CONFIG, TrainConfig()) and the "
+        print(f"[7/8] train: one train_group, the fine-tuned run_ours (Hotspot x1.5, CONFIG, TrainConfig()) and the "
               f"manager KV offload (qwen2-0.5b full width), on the card (at {time.perf_counter() - start:.0f} s)")
         by_path["train_group"] = train_group_check(dev)
         print(f"      (b) at {time.perf_counter() - start:.0f} s")
@@ -1956,6 +2110,10 @@ def main() -> int:
         print(f"      (c) at {time.perf_counter() - start:.0f} s")
         by_path["serve_manager"] = serve_manager_check(dev, qwen2_engine, qwen2_prompt)
         del qwen2_engine
+        print(f"[8/8] tables: the table runner at the paper preset, x1.25, 11 benchmarks (five simulator cells, "
+              f"UVMSmart, frozen ours; fine-tuned ours on {len(TABLES_TUNED)}), on the card "
+              f"(at {time.perf_counter() - start:.0f} s)")
+        by_path["table6"] = tables_path(dev)
         for r in rows:
             r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}
             r["launches"] = sum(r["launches_by_path"].values())

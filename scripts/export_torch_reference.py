@@ -89,12 +89,30 @@ observed batch's prefetch blocks, pattern and accuracy, and the initial
 params of all 8 slots its table could draw (``jax.random.key(s)``), which
 the port, whose fresh slots draw from ``torch.Generator``s, starts from.
 It takes about 15 seconds on a CPU and writes 0.3 MB.
+
+    PYTHONPATH=src python scripts/export_torch_reference.py --tables
+
+writes ``experiments/torch/tables_paper_ref.json`` instead: the JAX
+package's cells of the paper's Tables I-IV and VI at the ``paper`` preset
+(trace scale 1.0, each trace cut to its first 60,000 accesses) and 125%
+oversubscription, for each of the 11 benchmarks: ``run_batch``'s stats of
+the five standard cells (``lru``/``hpe`` x ``tree``/``demand``,
+``belady`` + ``demand``), ``run_uvmsmart``'s stats, the frozen ``run_ours``
+(``TrainConfig(2048, 0, 256)``) and the fine-tuned one (``TrainConfig()``,
+the paper's schedule) from ``pretrain_paper.npz``'s table with every slot's
+optimizer moments unset (as the port loads it), each with its stats, top-1,
+prediction count and per-group accuracies, and the host seconds of each.
+Beside them, the rows that ``benchmarks/tables.py``'s ``table1``-``table4``
+and ``table6`` build from those cells (``table6`` once with each ``ours``).
+It takes about 30 minutes on a CPU, most of it the fine-tuned runs; the
+JAX compile cache goes to a temporary directory.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -507,6 +525,106 @@ def export_serve_manager() -> None:
     print(json.dumps(meta))
 
 
+TABLES = {"preset": "paper", "scale": 1.0, "cap": 60_000, "oversubscription": 1.25,
+          "cells": [["lru", "tree"], ["lru", "demand"], ["hpe", "demand"], ["hpe", "tree"], ["belady", "demand"]]}
+
+
+class _TableContext:
+    """What ``benchmarks/tables.py``'s ``table1``-``table4`` and ``table6``
+    read of a ``Session``, served from cells computed beforehand."""
+
+    def __init__(self, benches, traces, cells, ours, pcfg, tcfg):
+        self.benches, self._traces, self._cells, self._ours = benches, traces, cells, ours
+        self.pcfg, self.tcfg = pcfg, tcfg
+
+    def trace(self, b):
+        return self._traces[b]
+
+    def sim(self, b, policy, prefetch, oversub=1.25):
+        return self._cells[b]["sim"][f"{policy}+{prefetch}"]
+
+    def uvmsmart(self, b, oversub=1.25):
+        return self._cells[b]["uvmsmart"]
+
+    def ours(self, b, oversub=1.25):
+        return self._ours[b]
+
+    def uvmsmart_many(self, names, oversub=1.25):
+        return [self.uvmsmart(n) for n in names]
+
+    def ours_many(self, names, oversub=1.25):
+        return [self.ours(n) for n in names]
+
+
+def export_tables() -> None:
+    """The JAX package's Table I-IV and VI cells at the paper preset (see
+    the module docstring)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="repro_tables_")
+    os.environ["REPRO_JAX_CACHE"] = tmp  # read when repro.uvm.api is imported
+    try:
+        _export_tables(Path(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _export_tables(tmp: Path) -> None:
+    import dataclasses
+    import time
+
+    sys.path.insert(0, str(ROOT))  # the benchmarks package
+    import benchmarks.common as BC
+    import benchmarks.tables as BT
+    from repro.configs.predictor_paper import CONFIG
+    from repro.core.features import unique_deltas_per_phase
+    from repro.core.incremental import TrainConfig, Trainer
+    from repro.uvm import runtime as R
+    from repro.uvm import simulator as S
+    from repro.uvm import trace as T
+    from repro.uvm.uvmsmart import run_uvmsmart
+
+    BC.OUT_DIR = tmp  # the tables' CSVs
+    t_start = time.perf_counter()
+    cells = [tuple(c) for c in TABLES["cells"]]
+    frozen_cfg = TrainConfig(group_size=GROUP, epochs=0, batch_size=256)
+    tuned_cfg = TrainConfig()
+    table, _ = _npz_table(Trainer(CONFIG, tuned_cfg))
+    benches = list(T.BENCHMARKS)
+    traces, out = {}, {}
+    ours = {"frozen": {}, "fine_tuned": {}}
+    for b in benches:
+        tr = T.get_trace(b, TABLES["scale"])
+        tr = traces[b] = tr.slice(0, min(len(tr), TABLES["cap"]))
+        rec = {"n_accesses": len(tr), "n_blocks": tr.n_blocks, "seconds": {}}
+        t0 = time.perf_counter()
+        stats = S.run_batch(tr, [(p, f, TABLES["oversubscription"]) for p, f in cells])
+        rec["sim"] = {f"{p}+{f}": st for (p, f), st in zip(cells, stats)}
+        rec["seconds"]["sim"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["uvmsmart"] = run_uvmsmart(tr, oversubscription=TABLES["oversubscription"])
+        rec["seconds"]["uvmsmart"] = time.perf_counter() - t0
+        for kind, tcfg in (("frozen", frozen_cfg), ("fine_tuned", tuned_cfg)):
+            t0 = time.perf_counter()
+            res = R.run_ours(tr, CONFIG, tcfg, oversubscription=TABLES["oversubscription"], table=table.clone())
+            rec["seconds"][f"ours_{kind}"] = time.perf_counter() - t0
+            ours[kind][b] = res
+            rec[f"ours_{kind}"] = {"stats": res.stats, "top1": res.top1, "n_predictions": res.n_predictions,
+                                   "per_group_acc": res.per_group_acc}
+        rec["table3"] = unique_deltas_per_phase(tr, 3)
+        out[b] = rec
+        print(json.dumps({"benchmark": b, **{k: rec[k] for k in ("n_accesses", "seconds")},
+                          "ours_fine_tuned_top1": rec["ours_fine_tuned"]["top1"]}), flush=True)
+    ctx = _TableContext(benches, traces, out, ours["fine_tuned"], CONFIG, tuned_cfg)
+    rows = {name: getattr(BT, name)(ctx) for name in ("table1", "table2", "table3", "table4", "table6")}
+    rows["table6_frozen"] = BT.table6(_TableContext(benches, traces, out, ours["frozen"], CONFIG, frozen_cfg))
+    ref = {**TABLES, "train": {"frozen": dataclasses.asdict(frozen_cfg), "fine_tuned": dataclasses.asdict(tuned_cfg)},
+           "benchmarks": out, "tables": rows, "seconds": time.perf_counter() - t_start}
+    (OUT / "tables_paper_ref.json").write_text(json.dumps(ref, indent=1) + "\n")
+    print(json.dumps({"seconds": ref["seconds"], "table6": rows["table6"][0], "table6_frozen": rows["table6_frozen"][0]}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cache-dir", default=None, help="memoise the pretraining in this directory")
@@ -514,12 +632,16 @@ def main() -> None:
     ap.add_argument("--serve-mamba2", action="store_true", help="write serve_mamba2_ref.npz (and nothing else)")
     ap.add_argument("--train", action="store_true", help="write train_hotspot_ref.npz (and nothing else)")
     ap.add_argument("--serve-manager", action="store_true", help="write serve_manager_ref.npz (and nothing else)")
+    ap.add_argument("--tables", action="store_true", help="write tables_paper_ref.json (and nothing else)")
     args = ap.parse_args()
     if args.train:
         export_train()
         return
     if args.serve_manager:
         export_serve_manager()
+        return
+    if args.tables:
+        export_tables()
         return
     if args.serve:
         export_serve()

@@ -131,3 +131,13 @@ class FeatureStream:
             t_index=(lo + np.arange(n)).astype(np.int32),
         )
 
+
+
+def unique_deltas_per_phase(trace: Trace, n_phases: int = 3) -> list[int]:
+    """Table III: cumulative unique page deltas at each program phase."""
+    page = trace.page.astype(np.int64)
+    deltas = np.diff(page, prepend=page[0])
+    out = []
+    for p in range(1, n_phases + 1):
+        out.append(int(len(np.unique(deltas[: len(deltas) * p // n_phases]))))
+    return out

@@ -42,7 +42,7 @@ from repro_torch.optim.adamw import OptState
 from repro_torch.uvm import simulator as S
 from repro_torch.uvm import timing
 from repro_torch.uvm.manager import FaultBatch, ManagerConfig, Outcomes, OversubscriptionManager
-from repro_torch.uvm.trace import PAGES_PER_BLOCK, Trace
+from repro_torch.uvm.trace import Trace
 
 @dataclasses.dataclass
 class LearnedRunResult:
@@ -220,16 +220,6 @@ def _apply_actions(state: S.SimState, actions, nb: int, cap: int, evict_pref=Non
     return S.apply_prefetch(state, mask, capacity=cap, policy="learned", evict_pref=evict_pref)
 
 
-def _state_stats(state: S.SimState) -> dict:
-    return {
-        "pages_thrashed": int(state.thrash_events) * PAGES_PER_BLOCK,
-        "faults": int(state.faults),
-        "migrated_blocks": int(state.migrations),
-        "zero_copy": int(state.zero_copy),
-        "occupancy": int(state.occupancy),
-    }
-
-
 def run_ours(
     trace: Trace,
     pcfg: PredictorConfig | None = None,
@@ -277,7 +267,7 @@ def run_ours(
         )
         mgr.feedback(Outcomes(was_evicted=outs["was_evicted"], fault_count=int(state.fault_count)))
     return LearnedRunResult(
-        _state_stats(state), mgr.top1, mgr.n_predictions, mgr.n_classes,
+        S.state_stats(state), mgr.top1, mgr.n_predictions, mgr.n_classes,
         mgr.n_models, mgr.per_group, mgr.warm_top1, n,
     )
 

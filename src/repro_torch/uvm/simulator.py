@@ -10,10 +10,19 @@ granularity; "pages thrashed" are blocks x 16 pages.
 Eviction policies (Section II-C / IV-D): ``lru``, ``belady`` (MIN oracle
 from the precomputed next-use stream), ``hpe`` (page-set chain + LRU) and
 ``learned`` (page-set chain + prediction-frequency table).  ``random``
-(whose victims are JAX threefry draws) is not ported.  Prefetcher:
-``demand`` (``none`` is its alias); the learned runtime stages its own
-prefetches through :func:`apply_prefetch`.  The ``tree`` prefetcher is not
-ported.
+(whose victims are JAX threefry draws) is not ported.  Prefetchers:
+``demand`` (``none`` is its alias; the learned runtime stages its own
+prefetches through :func:`apply_prefetch`) and ``tree``, NVIDIA's
+tree-based neighbourhood prefetcher: on a fault, every [2, 4, 8, 16,
+32]-block node around the faulted block that is more than half resident
+(the faulted block counted) migrates its remaining valid blocks.  Every
+node lies inside the faulted block's 2MB chunk, so the tree step works on
+that 32-block slice of the state.  As in the reference, the tree's mask
+does not exclude pinned blocks (``apply_prefetch``'s does).
+
+:func:`run` and :func:`run_batch` drive a whole trace (``run_batch`` runs
+its cells one after another; the reference's batched lanes are
+bit-identical to its per-cell runs).
 
 Counters, per-access outputs and state arrays are bit-identical to the JAX
 package for every ported policy:
@@ -41,14 +50,15 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.evict_select import evict_select
 from repro_torch.util import pow2_bucket
-from repro_torch.uvm.trace import Trace
+from repro_torch.uvm.trace import PAGES_PER_BLOCK, Trace
 
 CHUNK_BLOCKS = 32  # 2MB chunk = 32 x 64KB blocks
 INTERVAL = 64  # page-set-chain interval, in faults (same as HPE)
 NO_USE = np.int32(2**31 - 1)
 
 POLICIES = ("lru", "belady", "hpe", "learned")
-PREFETCHERS = ("demand", "none")
+PREFETCHERS = ("demand", "tree", "none")
+TREE_SIZES = (2, 4, 8, 16, CHUNK_BLOCKS)
 
 _I32 = torch.int32
 
@@ -289,8 +299,64 @@ def _evict_fit(state: SimState, capacity: int, policy: str, protect: int | None,
     state.occupancy -= vict.sum(dtype=_I32)
 
 
-def _scan_events(state: SimState, ev: Events, capacity: int, policy: str, evict_pref=None) -> dict:
-    """Walk the compressed event stream, updating ``state`` in place.
+class _Tree(NamedTuple):
+    """Device constants of the tree prefetcher's step, per block offset
+    ``o`` within a chunk: ``node[o, k, j]`` says whether chunk block ``j``
+    shares ``o``'s node of size ``TREE_SIZES[k]``; ``onehot[o]`` is ``o``
+    alone."""
+
+    node: torch.Tensor  # bool (32, 5, 32)
+    onehot: torch.Tensor  # bool (32, 32)
+    sizes: torch.Tensor  # int32 (5,)
+    valid: torch.Tensor  # bool (NB,) block < n_valid
+    n_valid: int
+    learned: bool  # the learned policy's chain also sees prefetched blocks
+
+
+def _tree(n_blocks: int, n_valid: int, policy: str, dev) -> _Tree:
+    j = np.arange(CHUNK_BLOCKS)
+    node = np.stack([j[None, :] // s == j[:, None] // s for s in TREE_SIZES], axis=1)
+    return _Tree(torch.tensor(node, device=dev), torch.eye(CHUNK_BLOCKS, dtype=torch.bool, device=dev),
+                 torch.tensor(TREE_SIZES, dtype=_I32, device=dev),
+                 torch.arange(n_blocks, device=dev) < n_valid, n_valid, policy == "learned")
+
+
+def _tree_migrate(state: SimState, tree: _Tree, b: int, fault, t_first, interval_now):
+    """The tree prefetcher's migration for one event on block ``b``, in
+    place: the faulted block and, if it faulted, the valid non-resident
+    blocks of every node around it that is more than half resident.
+    Returns the number of migrated blocks that had been evicted before."""
+    lo = b - b % CHUNK_BLOCKS
+    chunk = slice(lo, lo + CHUNK_BLOCKS)
+    res = state.resident[chunk]
+    node = tree.node[b - lo]
+    demand = tree.onehot[b - lo] & fault
+    res1 = res | demand
+    trig = (node & res1).sum(1, dtype=_I32) * 2 > tree.sizes
+    pf = (node & trig[:, None]).any(0) & ~res1 & fault
+    if lo + CHUNK_BLOCKS > tree.n_valid:
+        pf &= tree.valid[chunk]
+    newly = demand | pf  # the faulted block is never resident; pf excludes every resident block
+    n_new = newly.sum(dtype=_I32)
+    thrash = (newly & state.evicted_once[chunk]).sum(dtype=_I32)
+    res |= newly
+    state.occupancy += n_new
+    state.migrations += n_new
+    # prefetched blocks count as freshly used by LRU (CUDA treats migrated
+    # pages as recently touched); only the learned policy's page-set chain
+    # sees them (HPE's sees demand touches)
+    la = state.last_access[chunk]
+    la.copy_(torch.where(newly, t_first, la))
+    if tree.learned:
+        li = state.last_interval[chunk]
+        li.copy_(torch.where(newly, interval_now, li))
+    return thrash
+
+
+def _scan_events(state: SimState, ev: Events, capacity: int, policy: str, evict_pref=None,
+                 tree: _Tree | None = None) -> dict:
+    """Walk the compressed event stream, updating ``state`` in place, with
+    demand migration, or the tree prefetcher's when ``tree`` is given.
 
     Returns per-event device tensors (``fault``, ``thrash``,
     ``was_evicted``) and ``pfault`` (a scalar: did any periodic aggregate
@@ -307,16 +373,19 @@ def _scan_events(state: SimState, ev: Events, capacity: int, policy: str, evict_
         evicted_before = state.evicted_once[b].clone()
         fault = ~state.resident[b] & ~is_pinned
         fault_i = fault.to(_I32)
-        thrash = fault_i * evicted_before.to(_I32)
         interval_now = torch.div(state.fault_count, INTERVAL, rounding_mode="floor")
         fc_after = state.fault_count + fault_i
-        # demand migration: the faulted block comes in; it ends the run at
-        # its last touch and is protected during its own step
-        state.resident[b] |= fault
-        state.occupancy += fault_i
+        if tree is None:
+            thrash = fault_i * evicted_before.to(_I32)
+            # demand migration: the faulted block comes in; it ends the run
+            # at its last touch and is protected during its own step
+            state.resident[b] |= fault
+            state.occupancy += fault_i
+            state.migrations += fault_i
+        else:
+            thrash = _tree_migrate(state, tree, b, fault, t_first, interval_now)
         state.fault_count.copy_(fc_after)
         state.thrash_events += thrash
-        state.migrations += fault_i
         state.faults += fault_i
         state.zero_copy += is_pinned.to(_I32) * r
         state.last_access[b] = t_last
@@ -372,18 +441,21 @@ def run_segment(
     Period-p compression is tried first; if any periodic aggregate faulted,
     the segment reruns on plain run-length events, so the counters always
     equal the per-access reference.  ``n_valid`` (the real block count)
-    only matters to the ``tree`` prefetcher, which is not ported.
-    ``evict_pref`` (int32 per block on the state's device, or ``None``) is
-    the leading victim key for the whole segment."""
+    only matters to the ``tree`` prefetcher, which never fetches a block
+    past it.  ``evict_pref`` (int32 per block on the state's device, or
+    ``None``) is the leading victim key for the whole segment."""
     _check_cell(policy, prefetch)
     blocks = np.asarray(blocks)
     next_use = np.asarray(next_use)
+    tree = None
+    if prefetch == "tree" and len(blocks):
+        tree = _tree(state.resident.shape[0], int(n_valid), policy, state.device)
     for periodic in (True, False):
         ev = compress_events(blocks, next_use, periodic=periodic)
         if ev.n_access == 0:
             return state, _empty_outs()
         st = state.clone()
-        outs = _scan_events(st, ev, int(capacity), policy, evict_pref)
+        outs = _scan_events(st, ev, int(capacity), policy, evict_pref, tree)
         if periodic and (ev.stride > 1).any() and bool(outs["pfault"]):
             continue  # divergence: a merged occurrence may have faulted
         if not want_outs:
@@ -412,3 +484,69 @@ def apply_prefetch(state: SimState, blocks_mask: torch.Tensor, *, capacity: int,
     _evict_fit(st, int(capacity), policy, None, interval_now, evict_pref)
     return st
 
+
+def state_stats(state: SimState) -> dict:
+    """The run's counters (one host sync); pages thrashed are blocks x 16."""
+    thrash, faults, mig, zc, occ = torch.stack(
+        [state.thrash_events, state.faults, state.migrations, state.zero_copy, state.occupancy]).tolist()
+    return {"pages_thrashed": thrash * PAGES_PER_BLOCK, "faults": faults, "migrated_blocks": mig,
+            "zero_copy": zc, "occupancy": occ}
+
+
+class SimResult(NamedTuple):
+    state: SimState  # on the run's device
+    fault: np.ndarray
+    thrash: np.ndarray
+    was_evicted: np.ndarray
+
+    @property
+    def pages_thrashed(self) -> int:
+        return int(self.state.thrash_events) * PAGES_PER_BLOCK
+
+    @property
+    def stats(self) -> dict:
+        return state_stats(self.state)
+
+
+def run(
+    trace: Trace,
+    *,
+    policy: str = "lru",
+    prefetch: str = "tree",
+    oversubscription: float = 1.25,
+    state: SimState | None = None,
+    device: str | torch.device = "cuda",
+) -> SimResult:
+    """Run a full trace under (policy x prefetch) at an oversubscription
+    level, from ``state`` (on its own device) or a fresh state on
+    ``device``."""
+    _check_cell(policy, prefetch)
+    if state is None:
+        state = init_state(bucket_blocks(trace.n_blocks), device)
+    st, outs = run_segment(
+        state, trace.block.astype(np.int32), next_use_for(trace),
+        capacity=capacity_for(trace.n_blocks, oversubscription), policy=policy, prefetch=prefetch,
+        n_valid=trace.n_blocks,
+    )
+    return SimResult(st, outs["fault"], outs["thrash"], outs["was_evicted"])
+
+
+def run_batch(trace: Trace, cells: list[tuple[str, str, float]], *,
+              device: str | torch.device = "cuda") -> list[dict]:
+    """Many (policy, prefetch, oversubscription) cells over one trace; one
+    stats dict per cell.  The cells run one after another, each with its
+    own rerun on plain run-length events when a periodic aggregate faults:
+    the reference's batched lanes give each cell the counters of its own
+    :func:`run`."""
+    for policy, prefetch, _ in cells:
+        _check_cell(policy, prefetch)
+    device = resolve_device(device)
+    blocks = trace.block.astype(np.int32)
+    nxt = next_use_for(trace)
+    nb = bucket_blocks(trace.n_blocks)
+    states = []
+    for policy, prefetch, oversub in cells:
+        st, _ = run_segment(init_state(nb, device), blocks, nxt, capacity=capacity_for(trace.n_blocks, oversub),
+                            policy=policy, prefetch=prefetch, n_valid=trace.n_blocks, want_outs=False)
+        states.append(st)
+    return [state_stats(st) for st in states]

@@ -674,3 +674,28 @@ def test_flash_attention_f32_kernels_do_not_spill_at_head_widths_up_to_64(dev, t
     for name in ("fa_fwd_kernel", "fa_bwd_kernel"):
         for D in (8, 16, 32, 64):
             assert seen[(name, D)] == 0, f"{name}<{D}> spills {seen[(name, D)]} bytes"
+
+
+def test_tree_cell_and_uvmsmart_on_the_card_equal_the_cpu(dev):
+    """Table VI's baseline cell (``lru`` + ``tree``) and UVMSmart on Srad-v2
+    (periodic windows, tree epochs) on the card equal the port's CPU runs:
+    counters, per-access outputs and every state array."""
+    import dataclasses
+
+    from repro_torch.uvm import simulator as S
+    from repro_torch.uvm import trace as T
+    from repro_torch.uvm.uvmsmart import run_uvmsmart
+
+    tr = T.get_trace("Srad-v2", 0.25)
+    before = kernels.LAUNCHES["evict_select"]
+    got = S.run(tr, policy="lru", prefetch="tree", device=dev)
+    assert kernels.LAUNCHES["evict_select"] > before
+    want = S.run(tr, policy="lru", prefetch="tree", device="cpu")
+    assert got.stats == want.stats and got.stats["migrated_blocks"] > got.stats["faults"]
+    for f in dataclasses.fields(S.SimState):
+        assert torch.equal(getattr(got.state, f.name).cpu(), getattr(want.state, f.name)), f.name
+    for k in ("fault", "thrash", "was_evicted"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k), err_msg=k)
+    before = kernels.LAUNCHES["evict_select"]
+    assert run_uvmsmart(tr, device=dev) == run_uvmsmart(tr, device="cpu")
+    assert kernels.LAUNCHES["evict_select"] > before

@@ -52,6 +52,15 @@ def test_serving_entry_point_imports_no_jax():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_tables_entry_point_imports_no_jax():
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    child = _SERVE_CHILD.replace("import repro_torch.launch.serve", "import repro_torch.bench.tables, "
+                                 "repro_torch.uvm.uvmsmart, repro_torch.launch.serve")
+    out = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def test_port_sources_name_no_jax_import():
     for path in (SRC / "repro_torch").rglob("*.py"):
         for line in path.read_text().splitlines():
@@ -85,6 +94,22 @@ def test_entry_points_default_to_the_card():
     # the public functions below the manager default to the card too
     with pytest.raises(RuntimeError, match="no CUDA device"):
         S.init_state(64)
+    # the tables' path: run, run_batch, UVMSmart and the table runner
+    from repro_torch.bench import tables
+    from repro_torch.uvm.uvmsmart import run_uvmsmart
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        S.run(tr)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        S.run_batch(tr, [("lru", "tree", 1.25)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_uvmsmart(tr)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tables.Context()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tables.main(["--only", "table6"])
+    assert S.run(tr, device="cpu").state.device.type == "cpu"
+    assert tables.Context(device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PredictionFrequencyTable()
     with pytest.raises(RuntimeError, match="no CUDA device"):

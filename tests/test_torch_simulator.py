@@ -3,7 +3,8 @@ compression, ``run_segment`` (including the rerun on plain run-length
 events when a periodic aggregate faults) and ``apply_prefetch`` — counters,
 per-access outputs and every state array — for the lru, hpe, belady and
 learned policies with demand migration, over several traces and
-capacities."""
+capacities.  The ``tree`` prefetcher, ``run`` and ``run_batch`` are held in
+``tests/test_torch_tables.py``."""
 from __future__ import annotations
 
 import dataclasses
@@ -126,7 +127,7 @@ def test_evict_fit_takes_the_lexicographic_minimum():
 
 def test_unported_cells_raise():
     st = PS.init_state(128, "cpu")
-    for pol, pf in (("random", "demand"), ("lru", "tree")):
+    for pol, pf in (("random", "demand"), ("random", "tree"), ("lru", "stride")):
         with pytest.raises(NotImplementedError):
             PS.run_segment(st, np.zeros(4, np.int32), np.zeros(4, np.int32), capacity=4, policy=pol,
                            prefetch=pf, n_valid=1)
