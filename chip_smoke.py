@@ -106,13 +106,39 @@ Phases, in order; any failure exits non-zero:
               benchmark and its UVMSmart run, every counter equal; (b) the
               frozen ``ours`` (``TrainConfig(2048, 0, 256)``): stats, top-1
               and prediction count equal, and every row of Tables I-IV and
-              of Table VI equal; (c) the fine-tuned ``ours`` on the nine
+              of Table VI equal; (c) the fine-tuned ``ours`` on the four
               benchmarks of ``TABLES_TUNED`` within phase 7 (b)'s limits;
               (d) each column's host seconds, compressed events and launches
               (``evict_select`` in every column; ``freq_update`` and
               ``flash_attention`` in both ``ours`` columns; the training
               kernels in the fine-tuned one), and a profiled Hotspot
               ``lru`` + ``tree`` cell.
+9. concurrent — the paper's Section V-F cells (Tables VII and VIII) through
+              the runner at the ``paper`` preset and x1.25 on its four pairs
+              (``CONCURRENT_PAIRS``, each tenant's trace cut to 60,000
+              accesses, merged by ``trace.concurrent`` in slices of 2,048),
+              against the JAX package's runs (``experiments/torch/
+              concurrent_paper_ref.json``), with the JAX package's initial
+              weights for the slots the pretrained tables lack
+              (``experiments/torch/init_paper_slots.npz``): (a) each merge's
+              length and SHA-256; (b) the frozen ``run_ours`` under ``mux``
+              and ``merged`` on all four pairs: stats, top-1, prediction
+              count, each tenant's top-1 and stats, and Table VIII's rows
+              equal; (c) the fine-tuned ``mux`` and ``merged`` runs and (d)
+              Table VII's ``online_single`` and ``ours`` protocols on the
+              two short pairs (``CONCURRENT_TUNED``), equal where the CPU
+              rehearsal (``scripts/rehearse_concurrent_cpu.py``) gives equal
+              (``CONCURRENT_EQUAL``), else within phase 7 (b)'s limits; (e)
+              launches per column (``evict_select``, ``freq_update`` and
+              ``flash_attention`` frozen; the attention backward and both
+              ``thrash_ce`` kernels fine-tuned), each ``mux`` run's
+              ``freq_update`` launches per tenant table (both tenants' in
+              ``BOTH_TABLES_RUN``, the fine-tuned StreamTriad+2DCONV), each
+              run's host
+              seconds and compressed events, a profiled frozen ``mux`` run
+              and the host syncs of another.  The long pairs' fine-tuned
+              runs and the tables themselves are the runner's
+              (``python -m repro_torch.bench.tables --only table7 table8``).
 
 The last lines are the card's ``nvidia-smi`` line, a ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -1885,11 +1911,12 @@ def serve_manager_check(dev, eng, prompt) -> dict:
 # --- phase 8: the paper's tables ---------------------------------------------------
 
 TABLES_REF = ROOT / "experiments" / "torch" / "tables_paper_ref.json"
-# (c): the fine-tuned ``ours`` on the nine benchmarks of at most 8,192
-# accesses (all but Hotspot and Srad-v2; four of them open the prefetch gate,
-# so the frequency table trains too), within phase 7 (b)'s limits; a counter
-# whose reference is 0 must be 0
-TABLES_TUNED = ("ATAX", "BICG", "MVT", "Backprop", "NW", "Pathfinder", "StreamTriad", "AddVectors", "2DCONV")
+# (c): the fine-tuned ``ours`` on four of the nine benchmarks of at most
+# 8,192 accesses (all but Hotspot and Srad-v2; three of these four open the
+# prefetch gate, so the frequency table trains too; the runner's Table VI
+# fine-tunes all 11), within phase 7 (b)'s limits; a counter whose reference
+# is 0 must be 0.  Cut from nine to four to make room for phase 9.
+TABLES_TUNED = ("ATAX", "Pathfinder", "StreamTriad", "AddVectors")
 
 
 def _rel(got: int, want: int) -> float:
@@ -2021,6 +2048,236 @@ def tables_path(dev) -> dict:
     return {k: sum(c["launches"][k] for c in columns.values()) for k in next(iter(columns.values()))["launches"]}
 
 
+# --- phase 9: concurrent workloads (Section V-F) -------------------------------------
+
+CONCURRENT_REF = ROOT / "experiments" / "torch" / "concurrent_paper_ref.json"
+# the JAX package's initial weights of the slots the reference's runs create
+# (the port's own fresh slots draw from torch.Generator)
+FRESH = ROOT / "experiments" / "torch" / "init_paper_slots.npz"
+# (c) and (d): the fine-tuned runs and Table VII on the two short pairs
+CONCURRENT_TUNED = ("StreamTriad+2DCONV", "NW+2DCONV")
+# the runs of (c) and (d) that scripts/rehearse_concurrent_cpu.py gives equal
+# to the JAX package's, to the last digit: held equal here, the others within
+# phase 7 (b)'s limits
+CONCURRENT_EQUAL = ("StreamTriad+2DCONV|mux", "StreamTriad+2DCONV|online_single", "NW+2DCONV|mux", "NW+2DCONV|ours")
+# the mux run whose two tenants both open the prefetch gate (the rehearsal
+# updates each tenant's table: 1 and 3 times), so both tables must launch
+# freq_update; in the frozen runs only Hotspot's gate opens
+BOTH_TABLES_RUN = "StreamTriad+2DCONV|mux|tuned"
+
+
+def merge_sha256(trace) -> str:
+    """The SHA-256 of a merge's page, pc, tb, kernel and tenant arrays (int32,
+    in that order), as ``scripts/export_torch_reference.py --concurrent``
+    hashes the JAX package's."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a in (trace.page, trace.pc, trace.tb, trace.kernel, trace.tenant):
+        h.update(np.ascontiguousarray(a, np.int32).tobytes())
+    return h.hexdigest()
+
+
+def run_fields(res) -> dict:
+    """What the reference records of a ``run_ours`` and phase 9 holds exactly."""
+    return {"stats": res.stats, "top1": res.top1, "n_predictions": res.n_predictions,
+            "per_tenant_top1": res.per_tenant_top1, "per_tenant_stats": res.per_tenant_stats}
+
+
+def tuned_distance(res, want: dict) -> dict:
+    """How far a fine-tuned ``run_ours`` is from the reference's run, by
+    phase 7 (b)'s measures."""
+    return {"top1": res.top1, "top1_diff": abs(res.top1 - want["top1"]),
+            "stats_rtol": {k: _rel(res.stats[k], want["stats"][k]) for k in ("pages_thrashed", "faults",
+                                                                            "migrated_blocks")},
+            "n_predictions_equal": res.n_predictions == want["n_predictions"],
+            "occupancy_equal": res.stats["occupancy"] == want["stats"]["occupancy"],
+            "first_groups_acc_diff": max(abs(x - y) for x, y in zip(res.per_group_acc[:RUN_GROUPS_HELD],
+                                                                    want["per_group_acc"][:RUN_GROUPS_HELD])),
+            "equal": run_fields(res) == {k: want[k] for k in run_fields(res)}
+            and res.per_group_acc == want["per_group_acc"]}
+
+
+def check_tuned(name: str, d: dict) -> None:
+    """A fine-tuned run of (c) or (d): equal where the rehearsal gave equal,
+    else within phase 7 (b)'s limits."""
+    if name in CONCURRENT_EQUAL:
+        check(d["equal"], f"{name}: not equal to the JAX package's run, as the CPU rehearsal was: {d}")
+        return
+    check(d["n_predictions_equal"] and d.get("occupancy_equal", True), f"{name}: prediction count or occupancy differ")
+    check(d["top1_diff"] <= RUN_TOP1_ATOL, f"{name}: top-1 {d['top1']} is {d['top1_diff']} from the reference's")
+    check(max(d.get("stats_rtol", {"-": 0}).values()) <= RUN_STATS_RTOL, f"{name}: counters off by rtol {d}")
+    check(d["first_groups_acc_diff"] <= RUN_GROUP_ACC_ATOL, f"{name}: the first groups' accuracies differ by "
+          f"{d['first_groups_acc_diff']}")
+
+
+def count_syncs(dev, run) -> tuple:
+    """Run ``run`` once, counting the operations PyTorch's sync debug mode
+    flags as synchronizing (``torch.cuda.set_sync_debug_mode``), in all and
+    by the source line that called them (the ten most frequent); on the CPU
+    there are none to count."""
+    import collections
+    import warnings
+
+    import torch
+
+    if dev.type != "cuda":
+        return run(), None
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            res = run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    hits = [w for w in seen if "synchronizing" in str(w.message)]
+    where = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in hits)
+    return res, {"total": len(hits), "by_line": dict(where.most_common(10))}
+
+
+def concurrent_launch_checks(columns: dict, tables: dict) -> None:
+    """Every column launched the attention, the ``run_ours`` columns
+    ``evict_select`` and ``freq_update``, the fine-tuned ones the training
+    kernels; ``BOTH_TABLES_RUN``'s two tenant tables ``freq_update``."""
+    for name, col in columns.items():
+        for k in ("evict_select", "freq_update", "flash_attention") if name != "table7" else ("flash_attention",):
+            check(col["launches"][k] > 0, f"the {name} column never launched {k}")
+    for name in ("fine_tuned", "table7"):
+        for k in ("flash_attention_bwd", "thrash_ce_fwd", "thrash_ce_bwd"):
+            check(columns[name]["launches"][k] > 0, f"the {name} column never launched {k}")
+    check(len(tables[BOTH_TABLES_RUN]) == 2 and min(tables[BOTH_TABLES_RUN]) > 0,
+          f"a tenant's frequency table of {BOTH_TABLES_RUN} never launched freq_update: {tables[BOTH_TABLES_RUN]}")
+
+
+def concurrent_path(dev) -> dict:
+    """Phase 9: Tables VII and VIII's cells through the port's runner at the
+    paper preset and x1.25 against the JAX package's
+    (``experiments/torch/concurrent_paper_ref.json``).  Returns the launches
+    of all its columns together."""
+    from repro_torch import kernels
+    from repro_torch.bench import tables as TB
+    from repro_torch.core.incremental import TrainConfig
+    from repro_torch.core.policy import PredictionFrequencyTable
+    from repro_torch.uvm import runtime as R
+    from repro_torch.uvm import simulator as S
+
+    ref = json.loads(CONCURRENT_REF.read_text())
+    check((ref["preset"], ref["scale"], ref["cap"], ref["oversubscription"], ref["seed"])
+          == ("paper", *TB.SCALE_PRESETS["paper"], 1.25, 0), "the reference file is not the paper preset at x1.25")
+    check([tuple(p) for p in ref["pairs"]] == list(TB.CONCURRENT_PAIRS), "the reference's pairs are not the runner's")
+    ctx = TB.Context("paper", frozen=True, fresh=FRESH, device=dev)
+    tuned = ctx.with_train(TrainConfig(**ref["train"]["fine_tuned"]))
+    check(dataclasses.asdict(ctx.tcfg) == ref["train"]["frozen"] and ctx.tcfg.group_size == ref["slice_len"],
+          "the reference's frozen schedule is not the runner's")
+    merges = {"+".join(p): ctx.concurrent(p, slice_len=ref["slice_len"]) for p in TB.CONCURRENT_PAIRS}
+    # (a) the merges
+    for key, w in merges.items():
+        want = ref["pairs_ref"][key]
+        check((len(w), merge_sha256(w)) == (want["n_accesses"], want["sha256"]),
+              f"{key}: the merge differs from the JAX package's ({len(w)} accesses, want {want['n_accesses']})")
+    print("  (a) " + json.dumps({k: {"accesses": len(w), "blocks": w.n_blocks, "capacity": S.capacity_for(
+        w.n_blocks, 1.25)} for k, w in merges.items()}) + ": SHA-256 equal to the JAX package's")
+
+    walked, made, per_table = [0], [], {}
+    scan, mux_for, update = S._scan_events, R.mux_for, PredictionFrequencyTable.update
+
+    def counting(state, ev, *a):
+        walked[0] += len(ev.blk)
+        return scan(state, ev, *a)
+
+    def recording_mux_for(*a, **kw):
+        made.append(mux_for(*a, **kw))
+        return made[-1]
+
+    def counting_update(self, blocks):
+        before = kernels.LAUNCHES["freq_update"]
+        update(self, blocks)
+        per_table[id(self)] = per_table.get(id(self), 0) + kernels.LAUNCHES["freq_update"] - before
+
+    columns, runs, muxes = {}, {}, {}
+
+    def column(name, items):
+        _sync(dev)
+        kernels.reset_launches()
+        t_col = time.perf_counter()
+        for run_name, fn in items:
+            walked[0] = 0
+            n_made = len(made)
+            t0 = time.perf_counter()
+            runs[run_name] = fn()
+            _sync(dev)
+            runs[run_name + ":cost"] = {"host_s": time.perf_counter() - t0, "events": walked[0]}
+            if len(made) > n_made:
+                muxes[run_name] = made[-1]
+        _sync(dev)
+        columns[name] = {"host_s": time.perf_counter() - t_col, "runs": len(items),
+                         "launches": dict(kernels.LAUNCHES)}
+
+    S._scan_events, R.mux_for, PredictionFrequencyTable.update = counting, recording_mux_for, counting_update
+    try:
+        column("frozen", [(f"{k}|{t}", lambda w=w, t=t: ctx.ours(w, tenancy=t))
+                          for k, w in merges.items() for t in ("mux", "merged")])
+        column("fine_tuned", [(f"{k}|{t}|tuned", lambda w=merges[k], t=t: tuned.ours(w, tenancy=t))
+                              for k in CONCURRENT_TUNED for t in ("mux", "merged")])
+        column("table7", [(f"{k}|{m}", lambda w=merges[k], m=m: tuned.protocol(
+            w, m, table=tuned.pretrained("table7") if m == "ours" else None))
+            for k in CONCURRENT_TUNED for m in ("online_single", "ours")])
+    finally:
+        S._scan_events, R.mux_for, PredictionFrequencyTable.update = scan, mux_for, update
+    cost = {k[:-5]: v for k, v in runs.items() if k.endswith(":cost")}
+    print("  runs: " + json.dumps({k: {**v, "ms_per_event": 1e3 * v["host_s"] / max(v["events"], 1)}
+                                   for k, v in cost.items()}))
+    # (b) the frozen Table VIII, every run and row exact
+    bad = []
+    for key in merges:
+        for t in ("mux", "merged"):
+            got, want = run_fields(runs[f"{key}|{t}"]), ref["pairs_ref"][key]["runs"][f"{t}_frozen"]
+            if got != {k: want[k] for k in got}:
+                bad.append((key, t, got, {k: want[k] for k in got}))
+    check(not bad, f"the frozen runs differ from the JAX package's: {bad}")
+    check(TB.table8(ctx) == ref["tables"]["table8_frozen"], "Table VIII's rows (frozen) differ from the JAX package's")
+    print(f"  (b) {len(merges)} pairs x mux and merged, frozen: stats, top-1, prediction count, each tenant's top-1 "
+          f"and stats, and Table VIII's rows equal to the JAX package's")
+    # (c) the fine-tuned runs on the short pairs; (d) Table VII's protocols on them
+    dist = {}
+    for key in CONCURRENT_TUNED:
+        for t in ("mux", "merged"):
+            dist[f"{key}|{t}"] = tuned_distance(runs[f"{key}|{t}|tuned"], ref["pairs_ref"][key]["runs"][f"{t}_fine_tuned"])
+        for m in ("online_single", "ours"):
+            r, want = runs[f"{key}|{m}"], ref["pairs_ref"][key]["runs"][f"table7_{m}"]
+            dist[f"{key}|{m}"] = {
+                "top1": r.top1, "top1_diff": abs(r.top1 - want["top1"]),
+                "n_predictions_equal": (r.n_samples, r.n_models, r.n_classes) == (want["n_samples"], want["n_models"],
+                                                                                  want["n_classes"]),
+                "first_groups_acc_diff": max(abs(x - y) for x, y in zip(r.per_group[:RUN_GROUPS_HELD],
+                                                                        want["per_group"][:RUN_GROUPS_HELD])),
+                "equal": (r.top1, r.per_group) == (want["top1"], want["per_group"])}
+    print("  (c), (d) " + json.dumps(dist))
+    for name, d in dist.items():
+        check_tuned(name, d)
+    print(f"  (c), (d): {sum(d['equal'] for d in dist.values())} of {len(dist)} runs equal to the JAX package's "
+          f"(held equal: {list(CONCURRENT_EQUAL)}), the rest within phase 7 (b)'s limits")
+    # (e) launches per column; freq_update per tenant table of every mux run
+    print("  launches: " + json.dumps({k: {n: c for n, c in v["launches"].items() if c} for k, v in columns.items()}))
+    tables = {k: [per_table.get(id(m.freq_table), 0) for m in mux.managers.values()] for k, mux in muxes.items()}
+    print(f"  freq_update launches per tenant table of each mux run: {json.dumps(tables)}")
+    concurrent_launch_checks(columns, tables)
+    # where the time goes: one frozen mux run profiled, one counted for host syncs
+    w = merges["NW+2DCONV"]
+    again = profile_run("NW+2DCONV mux, frozen", lambda: R.run_ours(
+        w, ctx.pcfg, ctx.tcfg, oversubscription=1.25, table=ctx.pretrained(), device=dev))
+    check(run_fields(again) == run_fields(runs["NW+2DCONV|mux"]), "the profiled frozen mux run gave other results")
+    w = merges["StreamTriad+2DCONV"]
+    again, syncs = count_syncs(dev, lambda: R.run_ours(w, ctx.pcfg, ctx.tcfg, oversubscription=1.25,
+                                                       table=ctx.pretrained(), device=dev))
+    check(run_fields(again) == run_fields(runs["StreamTriad+2DCONV|mux"]), "a second frozen mux run gave other results")
+    groups = -(-len(w) // ctx.tcfg.group_size)
+    print(f"  synchronizing operations of the frozen StreamTriad+2DCONV mux run ({groups} groups): {json.dumps(syncs)}")
+    return {k: sum(c["launches"][k] for c in columns.values()) for k in next(iter(columns.values()))["launches"]}
+
+
 def main() -> int:
     import argparse
 
@@ -2054,13 +2311,13 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
         smi = nvidia_smi_line()
-        print(f"[1/8] device: {name} (count {count}); nvidia-smi: {smi}")
+        print(f"[1/9] device: {name} (count {count}); nvidia-smi: {smi}")
         print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
         t0 = time.perf_counter()
         LIBRARY.cdll()
         how = "built" if LIBRARY.build_seconds is not None else "loaded the existing build"
-        print(f"[2/8] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
+        print(f"[2/9] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
         for line in LIBRARY.ptxas_log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line or line.startswith("=="):
                 print("      " + line.strip())
@@ -2074,7 +2331,7 @@ def main() -> int:
             time_training(dev, args.time_training)
             return 0
 
-        print(f"[3/8] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
+        print(f"[3/9] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
         rows = [kernel_evict_select(dev), *kernel_freq_table(dev), kernel_flash_attention(dev),
                 kernel_flash_attention_bf16(dev), kernel_flash_attention_bwd(dev), kernel_decode_attention(dev),
                 kernel_ssd_scan(dev), *kernel_thrash_ce(dev)]
@@ -2093,16 +2350,16 @@ def main() -> int:
               f"step {tf['step_device_ops_per_call']}")
 
         by_path = {}
-        print(f"[4/8] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
+        print(f"[4/9] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         _, by_path["run_ours"] = main_path(dev)
-        print(f"[5/8] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
+        print(f"[5/9] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["serve"], qwen2_engine, qwen2_prompt = serve_path(dev)
-        print(f"[6/8] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
+        print(f"[6/9] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["serve_mamba2"] = serve_mamba2_path(dev)
-        print(f"[7/8] train: one train_group, the fine-tuned run_ours (Hotspot x1.5, CONFIG, TrainConfig()) and the "
+        print(f"[7/9] train: one train_group, the fine-tuned run_ours (Hotspot x1.5, CONFIG, TrainConfig()) and the "
               f"manager KV offload (qwen2-0.5b full width), on the card (at {time.perf_counter() - start:.0f} s)")
         by_path["train_group"] = train_group_check(dev)
         print(f"      (b) at {time.perf_counter() - start:.0f} s")
@@ -2110,10 +2367,14 @@ def main() -> int:
         print(f"      (c) at {time.perf_counter() - start:.0f} s")
         by_path["serve_manager"] = serve_manager_check(dev, qwen2_engine, qwen2_prompt)
         del qwen2_engine
-        print(f"[8/8] tables: the table runner at the paper preset, x1.25, 11 benchmarks (five simulator cells, "
+        print(f"[8/9] tables: the table runner at the paper preset, x1.25, 11 benchmarks (five simulator cells, "
               f"UVMSmart, frozen ours; fine-tuned ours on {len(TABLES_TUNED)}), on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["table6"] = tables_path(dev)
+        print(f"[9/9] concurrent: Tables VII and VIII's cells, four pairs at the paper preset, x1.25 (frozen mux and "
+              f"merged on all four; fine-tuned and Table VII on {', '.join(CONCURRENT_TUNED)}), on the card "
+              f"(at {time.perf_counter() - start:.0f} s)")
+        by_path["concurrent"] = concurrent_path(dev)
         for r in rows:
             r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}
             r["launches"] = sum(r["launches_by_path"].values())

@@ -106,6 +106,31 @@ Beside them, the rows that ``benchmarks/tables.py``'s ``table1``-``table4``
 and ``table6`` build from those cells (``table6`` once with each ``ours``).
 It takes about 30 minutes on a CPU, most of it the fine-tuned runs; the
 JAX compile cache goes to a temporary directory.
+
+    PYTHONPATH=src python scripts/export_torch_reference.py --concurrent
+
+writes ``experiments/torch/concurrent_paper_ref.json``,
+``pretrain_paper_s321.npz`` and ``init_paper_slots.npz`` instead: the
+Section V-F cells of ``benchmarks/tables.py``'s ``table7`` and ``table8`` at
+the ``paper`` preset (each tenant's trace at scale 1.0 cut to its first
+60,000 accesses, merged by ``trace.concurrent`` in slices of 2,048 with
+seed 0; the merge is not cut, as in ``Session.trace``) and 125%
+oversubscription.  For each of the four pairs: the merge's length and the
+SHA-256 of its page, pc, tb, kernel and tenant arrays (int32, in that
+order); the frozen (``TrainConfig(2048, 0, 256)``) and fine-tuned
+(``TrainConfig()``) ``run_ours`` under ``mux`` and ``merged`` from
+``pretrain_paper.npz``'s table with the moments unset (as the port loads
+it), each with its stats, top-1, prediction count, per-tenant top-1 and
+stats, per-group accuracies, the table's misses and the slots it created;
+and Table VII's ``online_single`` (fresh weights) and ``ours`` protocol
+runs at ``TrainConfig()``, ``ours`` from Table VII's own Section V-A table
+(``PretrainSpec(scale=0.6, seed0=321)`` at ``CONFIG``, two rounds, written
+to ``pretrain_paper_s321.npz`` as ``pretrain_paper.npz`` is, and loaded
+back the same way).  Beside them, the rows ``table7`` and ``table8`` (once
+frozen, once fine-tuned) build from those runs.  ``init_paper_slots.npz``
+holds ``Trainer.new_params(s)`` (float32) for exactly the slots those runs
+created, which the port, whose fresh slots draw from ``torch.Generator``,
+starts from when asked (``fresh=``).
 """
 from __future__ import annotations
 
@@ -351,15 +376,16 @@ TRAIN = {"benchmark": "Hotspot", "scale": 1.0, "oversubscription": 1.5, "group_c
          "train": {"group_size": 2048, "epochs": 3, "batch_size": 256, "lr": 3e-3}}
 
 
-def _npz_table(trainer):
-    """The JAX model table of ``pretrain_paper.npz`` with every slot's
-    optimizer moments unset (``opt_state=None``), each keeping its ``step``."""
+def _npz_table(trainer, path: Path = OUT / "pretrain_paper.npz"):
+    """The JAX model table of ``pretrain_paper.npz`` (or ``path``) with every
+    slot's optimizer moments unset (``opt_state=None``), each keeping its
+    ``step``."""
     import jax.numpy as jnp
 
     from repro.core.model_table import Entry, ModelTable
     from repro_torch import convert
 
-    blob = convert.blob_from_npz(OUT / "pretrain_paper.npz")
+    blob = convert.blob_from_npz(path)
     table = ModelTable(lambda s: trainer.new_params(s), n_slots=blob["n_slots"])
     for s, e in blob["slots"].items():
         table.slots[s] = Entry(params={k: jnp.asarray(v) for k, v in e["params"].items()}, step=e["step"],
@@ -625,6 +651,180 @@ def _export_tables(tmp: Path) -> None:
     print(json.dumps({"seconds": ref["seconds"], "table6": rows["table6"][0], "table6_frozen": rows["table6_frozen"][0]}))
 
 
+def _write_table_npz(table, path: Path) -> None:
+    """A model table's params as ``pretrain_paper.npz`` stores them."""
+    import numpy as np
+
+    arrays = {"n_slots": np.int64(table.n_slots)}
+    for s, e in sorted(table.slots.items()):
+        for k, v in e.params.items():
+            arrays[f"slot{s}/{k}"] = np.asarray(v, np.float32)
+        arrays[f"slot{s}/step"] = np.int64(e.step)
+        arrays[f"slot{s}/n_updates"] = np.int64(e.n_updates)
+        arrays[f"slot{s}/last_acc"] = np.float64(e.last_acc)
+    np.savez_compressed(path, **arrays)
+
+
+CONCURRENT = {"preset": "paper", "scale": 1.0, "cap": 60_000, "oversubscription": 1.25, "slice_len": GROUP,
+              "seed": 0, "pairs": [["StreamTriad", "2DCONV"], ["Hotspot", "Srad-v2"], ["NW", "2DCONV"],
+                                   ["ATAX", "Srad-v2"]],
+              "table7_pretrain": {"scale": 0.6, "seed0": 321, "max_rounds": 2}}
+
+
+def merge_sha256(trace) -> str:
+    """The SHA-256 of a merge's page, pc, tb, kernel and tenant arrays
+    (int32, in that order); ``chip_smoke.py`` hashes the port's the same way."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a in (trace.page, trace.pc, trace.tb, trace.kernel, trace.tenant):
+        h.update(np.ascontiguousarray(a, np.int32).tobytes())
+    return h.hexdigest()
+
+
+class _ConcurrentContext:
+    """What ``benchmarks/tables.py``'s ``table7`` and ``table8`` read of a
+    ``Session``, served from runs made beforehand."""
+
+    def __init__(self, tcfg, merges, ours, protocols):
+        from repro.uvm.api.specs import PretrainSpec
+
+        self.tcfg, self._merges, self._ours, self._protocols = tcfg, merges, ours, protocols
+        self.default_pretrain = PretrainSpec(scale=0.6)
+
+    def concurrent(self, tenants, *, slice_len=256, seed=0):
+        assert slice_len == CONCURRENT["slice_len"] and seed == CONCURRENT["seed"]
+        return "+".join(tenants)
+
+    def ours(self, w, tenancy="mux"):
+        return self._ours[w][tenancy]
+
+    def protocol(self, w, mode, pretrain=None):
+        assert (pretrain is None) == (mode == "online_single")
+        if pretrain is not None:
+            assert (pretrain.scale, pretrain.seed0) == (0.6, 321)
+        return self._protocols[w][mode]
+
+
+def export_concurrent() -> None:
+    """The JAX package's Table VII and VIII cells at the paper preset (see
+    the module docstring)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="repro_concurrent_")
+    os.environ["REPRO_JAX_CACHE"] = tmp  # read when repro.uvm.api is imported
+    os.environ["REPRO_PRETRAIN_CACHE"] = "0"
+    try:
+        _export_concurrent(Path(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _export_concurrent(tmp: Path) -> None:
+    import dataclasses
+    import time
+
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT))  # the benchmarks package
+    import benchmarks.common as BC
+    import benchmarks.tables as BT
+    from repro.configs.predictor_paper import CONFIG
+    from repro.core.incremental import TrainConfig, Trainer, run_protocol
+    from repro.core.model_table import ModelTable
+    from repro.uvm import runtime as R
+    from repro.uvm import trace as T
+    from repro.uvm.api.session import Session
+    from repro.uvm.api.specs import PretrainSpec
+
+    BC.OUT_DIR = tmp  # the tables' CSVs
+    t_start = time.perf_counter()
+    c = CONCURRENT
+    frozen_cfg = TrainConfig(group_size=GROUP, epochs=0, batch_size=256)
+    tuned_cfg = TrainConfig()
+    trainer = Trainer(CONFIG, tuned_cfg)
+    base, _ = _npz_table(trainer)
+    base_slots = set(base.slots)
+    # Table VII's own Section V-A table, written and loaded back as the port loads it
+    t0 = time.perf_counter()
+    pspec = dataclasses.replace(Session.paper().default_pretrain, seed0=c["table7_pretrain"]["seed0"])
+    assert (pspec.scale, pspec.max_rounds) == (c["table7_pretrain"]["scale"], c["table7_pretrain"]["max_rounds"])
+    _write_table_npz(Session.paper().pretrained(pspec), OUT / "pretrain_paper_s321.npz")
+    t7, _ = _npz_table(trainer, OUT / "pretrain_paper_s321.npz")
+    pretrain_s = time.perf_counter() - t0
+    created: set = set()
+
+    def tables_of(mgr) -> list:
+        return [m.table for m in mgr.managers.values()] if hasattr(mgr, "managers") else [mgr.table]
+
+    def new_slots(tables, start: set) -> list:
+        return sorted({s for tb in tables for s in tb.slots} - start)
+
+    out, merges, ours, protocols = {}, {}, {}, {}
+    for a, b in c["pairs"]:
+        key = f"{a}+{b}"
+        parts = []
+        for n in (a, b):
+            tr = T.get_trace(n, c["scale"])
+            parts.append(tr.slice(0, min(len(tr), c["cap"])))
+        w = merges[key] = T.concurrent(parts, seed=c["seed"], slice_len=c["slice_len"])
+        rec = {"n_accesses": len(w), "n_blocks": w.n_blocks, "parts": [len(p) for p in parts],
+               "tenant_names": list(w.tenant_names), "sha256": merge_sha256(w), "runs": {}}
+        ours[key] = {}
+        for kind, tcfg in (("frozen", frozen_cfg), ("fine_tuned", tuned_cfg)):
+            for tenancy in ("mux", "merged"):
+                build = R.mux_for if tenancy == "mux" else R.manager_for
+                mgr = build(w, CONFIG, tcfg, oversubscription=c["oversubscription"], table=base.clone())
+                t0 = time.perf_counter()
+                res = R.run_ours(w, CONFIG, tcfg, oversubscription=c["oversubscription"], manager=mgr)
+                tables = tables_of(mgr)
+                made = new_slots(tables, base_slots)
+                created |= set(made)
+                rec["runs"][f"{tenancy}_{kind}"] = {
+                    "stats": res.stats, "top1": res.top1, "n_predictions": res.n_predictions,
+                    "per_tenant_top1": res.per_tenant_top1, "per_tenant_stats": res.per_tenant_stats,
+                    "per_group_acc": res.per_group_acc, "warm_top1": res.warm_top1, "n_models": res.n_models,
+                    "n_classes": res.n_classes, "misses": sum(tb.misses for tb in tables), "created_slots": made,
+                    "seconds": time.perf_counter() - t0}
+                ours[key].setdefault(kind, {})[tenancy] = res
+                print(json.dumps({"pair": key, "run": f"{tenancy}_{kind}", "top1": res.top1,
+                                  "seconds": rec["runs"][f"{tenancy}_{kind}"]["seconds"]}), flush=True)
+        protocols[key] = {}
+        for mode in ("online_single", "ours"):
+            table = (ModelTable(lambda s: trainer.new_params(s), n_slots=tuned_cfg.table_slots)
+                     if mode == "online_single" else t7.clone())
+            start = set(table.slots)
+            t0 = time.perf_counter()
+            res = protocols[key][mode] = run_protocol(w, CONFIG, tuned_cfg, mode=mode, table=table)
+            made = new_slots([table], start)
+            created |= set(made)
+            rec["runs"][f"table7_{mode}"] = {"top1": res.top1, "per_group": res.per_group, "n_classes": res.n_classes,
+                                             "n_models": res.n_models, "n_samples": res.n_samples,
+                                             "misses": table.misses, "created_slots": made,
+                                             "seconds": time.perf_counter() - t0}
+            print(json.dumps({"pair": key, "run": f"table7_{mode}", "top1": res.top1}), flush=True)
+        out[key] = rec
+    rows = {"table7": BT.table7(_ConcurrentContext(tuned_cfg, merges, protocols, protocols)),
+            "table8": BT.table8(_ConcurrentContext(tuned_cfg, merges,
+                                                   {k: v["fine_tuned"] for k, v in ours.items()}, protocols)),
+            "table8_frozen": BT.table8(_ConcurrentContext(frozen_cfg, merges,
+                                                          {k: v["frozen"] for k, v in ours.items()}, protocols))}
+    init = {s: trainer.new_params(s) for s in sorted(created)}
+    arrays = {"n_slots": np.int64(tuned_cfg.table_slots)}
+    arrays.update({f"slot{s}/{k}": np.asarray(v, np.float32) for s, p in init.items() for k, v in p.items()})
+    np.savez_compressed(OUT / "init_paper_slots.npz", **arrays)
+    ref = {**c, "train": {"frozen": dataclasses.asdict(frozen_cfg), "fine_tuned": dataclasses.asdict(tuned_cfg)},
+           "base_slots": sorted(base_slots), "table7_slots": sorted(t7.slots), "init_slots": sorted(created),
+           "pairs_ref": out, "tables": rows, "pretrain_seconds": pretrain_s,
+           "seconds": time.perf_counter() - t_start}
+    (OUT / "concurrent_paper_ref.json").write_text(json.dumps(ref, indent=1) + "\n")
+    print(json.dumps({"seconds": ref["seconds"], "init_slots": ref["init_slots"], "table7_slots": ref["table7_slots"],
+                      "table8": rows["table8"][0], "table8_frozen": rows["table8_frozen"][0]}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cache-dir", default=None, help="memoise the pretraining in this directory")
@@ -633,7 +833,12 @@ def main() -> None:
     ap.add_argument("--train", action="store_true", help="write train_hotspot_ref.npz (and nothing else)")
     ap.add_argument("--serve-manager", action="store_true", help="write serve_manager_ref.npz (and nothing else)")
     ap.add_argument("--tables", action="store_true", help="write tables_paper_ref.json (and nothing else)")
+    ap.add_argument("--concurrent", action="store_true", help="write concurrent_paper_ref.json, "
+                    "pretrain_paper_s321.npz and init_paper_slots.npz (and nothing else)")
     args = ap.parse_args()
+    if args.concurrent:
+        export_concurrent()
+        return
     if args.train:
         export_train()
         return
@@ -652,8 +857,6 @@ def main() -> None:
     if args.cache_dir is None:
         os.environ["REPRO_PRETRAIN_CACHE"] = "0"
 
-    import numpy as np
-
     from repro.uvm import runtime as R
     from repro.uvm import trace as T
     from repro.uvm.api.session import Session
@@ -662,14 +865,7 @@ def main() -> None:
         R.PRETRAIN_CACHE_DIR = Path(args.cache_dir)
     table = Session.paper().pretrained()
     OUT.mkdir(parents=True, exist_ok=True)
-    arrays = {"n_slots": np.int64(table.n_slots)}
-    for s, e in sorted(table.slots.items()):
-        for k, v in e.params.items():
-            arrays[f"slot{s}/{k}"] = np.asarray(v, np.float32)
-        arrays[f"slot{s}/step"] = np.int64(e.step)
-        arrays[f"slot{s}/n_updates"] = np.int64(e.n_updates)
-        arrays[f"slot{s}/last_acc"] = np.float64(e.last_acc)
-    np.savez_compressed(OUT / "pretrain_paper.npz", **arrays)
+    _write_table_npz(table, OUT / "pretrain_paper.npz")
 
     trace = T.get_trace("Hotspot", 1.0)
     ref = {

@@ -1,13 +1,19 @@
-"""The paper's Tables I-IV and VI on the port (counterpart of
-``benchmarks/tables.py``'s ``table1``-``table4`` and ``table6``).
+"""The paper's Tables I-IV and VI-VIII on the port (counterpart of
+``benchmarks/tables.py``'s ``table1``-``table4`` and ``table6``-``table8``).
 
     PYTHONPATH=src python -m repro_torch.bench.tables --only table6 [--scale paper] \\
-        [--frozen] [--table PATH] [--device cpu]
+        [--frozen] [--table PATH] [--fresh PATH] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.bench.tables --only table7 table8 --scale paper
 
 Every cell runs on the card unless ``--device cpu`` is given.  Each table
 prints the reference's contract line (``name,us_per_call,derived``) and
 then one JSON object per row; Table VI's first row is the average
-reduction of ``ours`` against the baseline (``lru`` + ``tree``).
+reduction of ``ours`` against the baseline (``lru`` + ``tree``), Table
+VIII's the average top-1 gain of the per-tenant ``TenantMux`` over one
+merged manager (it raises, with the per-pair breakdown, when that is below
+0).  Tables VII and VIII run the Section V-F pairs (``CONCURRENT_PAIRS``),
+each a :func:`repro_torch.uvm.trace.concurrent` merge in slices of one
+training group.
 
 A :class:`Context` takes the place of the reference's ``Session``: the same
 benchmarks (``ALL_BENCH``), presets (``SCALE_PRESETS``) and rule-based
@@ -18,7 +24,15 @@ fine-tuning), from a pretrained table: at the ``paper`` preset the one
 ``scripts/export_torch_reference.py`` exports from ``Session.paper()``
 (``experiments/torch/pretrain_paper.npz``, optimizer moments left out).
 The ``quick`` preset's table has no exported copy, so there ``ours`` needs
-``--table``.
+``--table``.  Table VII's ``ours`` starts from its own Section V-A table
+(``PretrainSpec(scale=0.6, seed0=321)``: ``experiments/torch/
+pretrain_paper_s321.npz``), its ``online_single`` from fresh weights.
+
+A slot that a table lacks starts from the port's own initialisation
+(``torch.Generator``), which is not the JAX package's (``jax.random``):
+pass ``--fresh experiments/torch/init_paper_slots.npz``, the JAX package's
+initial weights of the slots its runs of Tables VII and VIII create, to
+start those slots as the JAX package does.
 """
 from __future__ import annotations
 
@@ -32,9 +46,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch import convert
 from repro_torch.configs.predictor_paper import CONFIG, CONFIG_QUICK
 from repro_torch.core.features import unique_deltas_per_phase
-from repro_torch.core.incremental import TrainConfig
+from repro_torch.core.incremental import RunResult, TrainConfig, run_protocol
 from repro_torch.core.model_table import ModelTable
 from repro_torch.core.pattern import PatternClassifier
 from repro_torch.core.predictor import param_count
@@ -52,8 +67,18 @@ STANDARD_CELLS = (
     ("lru", "tree"), ("lru", "demand"), ("hpe", "demand"),
     ("hpe", "tree"), ("belady", "demand"),
 )
-PAPER_TABLE = Path(__file__).resolve().parents[3] / "experiments" / "torch" / "pretrain_paper.npz"
-TABLES = ("table1", "table2", "table3", "table4", "table6")
+EXPERIMENTS = Path(__file__).resolve().parents[3] / "experiments" / "torch"
+PAPER_TABLE = EXPERIMENTS / "pretrain_paper.npz"
+#: Table VII's ``ours`` table: the paper preset's recipe with ``seed0=321``
+PAPER_TABLE_S321 = EXPERIMENTS / "pretrain_paper_s321.npz"
+#: the JAX package's initial weights of the fresh slots of Tables VII and VIII
+PAPER_FRESH = EXPERIMENTS / "init_paper_slots.npz"
+TABLES = ("table1", "table2", "table3", "table4", "table6", "table7", "table8")
+#: the Section V-F pairs of Tables VII and VIII
+CONCURRENT_PAIRS = (("StreamTriad", "2DCONV"), ("Hotspot", "Srad-v2"), ("NW", "2DCONV"), ("ATAX", "Srad-v2"))
+#: ``ours``'s treatments of a tenant-tagged trace: one pipeline per tenant
+#: (isolated or shared frequency tables) or one merged manager
+TENANCIES = ("mux", "mux-shared", "merged")
 
 
 class Context:
@@ -62,11 +87,16 @@ class Context:
     ``table`` is the pretrained model table ``ours`` starts from (a
     :class:`ModelTable` or the path of a memo pickle or ``.npz``); it
     defaults to ``PAPER_TABLE`` at the ``paper`` preset and to none at
-    ``quick``, where ``ours`` then raises.  ``pcfg`` (the predictor) and
-    ``tcfg`` (the schedule) are the preset's."""
+    ``quick``, where ``ours`` then raises.  ``table7`` is Table VII's
+    (``PAPER_TABLE_S321`` at ``paper``).  ``fresh`` (a mapping slot ->
+    params, or an ``.npz`` of them) gives the initial weights of slots a
+    table lacks, and of ``protocol``'s fresh tables; ``None`` is the port's
+    own initialisation.  ``pcfg`` (the predictor) and ``tcfg`` (the
+    schedule) are the preset's."""
 
     def __init__(self, preset: str = "paper", *, benches: list | None = None, frozen: bool = False,
-                 table: ModelTable | str | Path | None = None, device: str | torch.device = "cuda"):
+                 table: ModelTable | str | Path | None = None, table7: ModelTable | str | Path | None = None,
+                 fresh: dict | str | Path | None = None, device: str | torch.device = "cuda"):
         self.preset = preset
         self.scale, self.cap = SCALE_PRESETS[preset]
         self.benches = list(benches) if benches is not None else list(ALL_BENCH)
@@ -76,9 +106,12 @@ class Context:
         # the reference's PAPER_TRAIN and its default TrainSpec
         train = TrainConfig(2048, 3, 256) if paper else TrainConfig(1024, 2, 128)
         self.tcfg = dataclasses.replace(train, epochs=0) if frozen else train
-        self._table = PAPER_TABLE if table is None and paper else table
-        self._master = None
+        self._tables = {"ours": PAPER_TABLE if table is None and paper else table,
+                        "table7": PAPER_TABLE_S321 if table7 is None and paper else table7}
+        self.fresh = convert.fresh_slots(fresh) if isinstance(fresh, (str, Path)) else fresh
+        self._masters: dict = {}
         self._traces: dict = {}
+        self._merges: dict = {}
         self._sims: dict = {}
         self._smart: dict = {}
         self._ours: dict = {}
@@ -116,25 +149,54 @@ class Context:
                                                         device=self.device)
         return self._smart[(name, oversub)]
 
-    def pretrained(self) -> ModelTable:
-        """A fresh copy of the pretrained table (fine-tuning changes it)."""
-        if self._master is None:
-            if self._table is None:
+    def concurrent(self, tenants, *, slice_len: int = 256, seed: int = 0) -> T.Trace:
+        """A Section V-F merge of the tenants' traces (each cut to ``cap``,
+        as the reference's ``Session.trace`` cuts the parts; the merge itself
+        is not cut)."""
+        key = (tuple(tenants), slice_len, seed)
+        if key not in self._merges:
+            self._merges[key] = T.concurrent([self.trace(t) for t in tenants], seed=seed, slice_len=slice_len)
+        return self._merges[key]
+
+    def pretrained(self, which: str = "ours") -> ModelTable:
+        """A fresh copy of a pretrained table (fine-tuning changes it):
+        ``ours``'s, or ``"table7"``'s."""
+        if which not in self._masters:
+            src = self._tables[which]
+            if src is None:
+                if which == "table7":
+                    raise NotImplementedError(
+                        f"the {self.preset!r} preset's Table VII table (the reference's pretrain with seed0=321) "
+                        "has no exported copy; pass table7=")
                 raise NotImplementedError(
                     f"the {self.preset!r} preset's pretrained table (the reference's Session().pretrained(): "
                     "pretrain_table over PretrainSpec(scale=0.24)'s corpus at CONFIG_QUICK and "
                     "TrainConfig(1024, 2, 128)) has no exported copy; pass table=")
-            self._master = (self._table if isinstance(self._table, ModelTable)
-                            else R.load_pretrained(self._table, self.pcfg, self.device))
-        return self._master.clone()
+            self._masters[which] = (src if isinstance(src, ModelTable)
+                                    else R.load_pretrained(src, self.pcfg, self.device, fresh=self.fresh))
+        return self._masters[which].clone()
 
-    def ours(self, name: str, oversub: float = 1.25) -> R.LearnedRunResult:
-        """The paper's learned runtime on one benchmark (Section IV)."""
-        if (name, oversub) not in self._ours:
-            self._ours[(name, oversub)] = R.run_ours(self.trace(name), self.pcfg, self.tcfg,
-                                                     oversubscription=oversub, table=self.pretrained(),
-                                                     device=self.device)
-        return self._ours[(name, oversub)]
+    def ours(self, w: str | T.Trace, oversub: float = 1.25, tenancy: str = "mux") -> R.LearnedRunResult:
+        """The paper's learned runtime on a benchmark or a merge (Section
+        IV); ``tenancy`` picks a merge's treatment (``TENANCIES``)."""
+        if tenancy not in TENANCIES:
+            raise ValueError(f"unknown tenancy {tenancy!r}; one of {TENANCIES}")
+        tr = self.trace(w) if isinstance(w, str) else w
+        key = (tr.name, len(tr), oversub, tenancy)
+        if key not in self._ours:
+            self._ours[key] = R.run_ours(tr, self.pcfg, self.tcfg, oversubscription=oversub, table=self.pretrained(),
+                                         multi_tenant=False if tenancy == "merged" else None,
+                                         shared_freq_table=tenancy == "mux-shared", device=self.device)
+        return self._ours[key]
+
+    def protocol(self, w: str | T.Trace, mode: str, table: ModelTable | None = None) -> RunResult:
+        """One prediction-accuracy protocol run (strictly causal top-1) at
+        the context's predictor and schedule, from ``table`` (used as given)
+        or from fresh weights."""
+        tr = self.trace(w) if isinstance(w, str) else w
+        if table is None:
+            table = convert.fresh_table(self.pcfg, self.device, self.tcfg.table_slots, self.fresh)
+        return run_protocol(tr, self.pcfg, self.tcfg, mode=mode, table=table, device=self.device)
 
 
 def emit(name: str, rows: list[dict], t0: float) -> None:
@@ -244,15 +306,75 @@ def table6(ctx: Context) -> list[dict]:
     return rows
 
 
+def table7(ctx: Context) -> list[dict]:
+    """Concurrent multi-workload page-delta prediction (scalability).
+    'Ours' follows the paper's Section V-A protocol: per-pattern models
+    pretrained on a (different-input) corpus, then fine-tuned online."""
+    t0 = time.time()
+    rows = []
+    for a, b in CONCURRENT_PAIRS:
+        # slices aligned with the training group: each group sees one
+        # tenant's coherent stream, which is what the DFA classifies
+        w = ctx.concurrent((a, b), slice_len=ctx.tcfg.group_size)
+        online = ctx.protocol(w, "online_single")
+        ours = ctx.protocol(w, "ours", table=ctx.pretrained("table7"))
+        rows.append({
+            "workloads": f"{a}+{b}", "online_top1": round(online.top1, 3),
+            "ours_top1": round(ours.top1, 3), "derived": f"delta={ours.top1 - online.top1:+.3f}",
+        })
+    emit("table7_multiworkload", rows, t0)
+    return rows
+
+
+def table8(ctx: Context) -> list[dict]:
+    """Section V-F concurrent top-1 through the full runtime (simulator in
+    the loop): the multi-tenant ``TenantMux`` (one classifier->predictor
+    pipeline per tenant, isolated frequency tables) against one manager
+    over the merged stream.  The paper reports +10.2% top-1 on average (up
+    to +30.2%) for per-workload specialisation."""
+    t0 = time.time()
+    rows, deltas = [], []
+    for a, b in CONCURRENT_PAIRS:
+        w = ctx.concurrent((a, b), slice_len=ctx.tcfg.group_size)
+        mux = ctx.ours(w)
+        merged = ctx.ours(w, tenancy="merged")
+        per = {k: round(v, 3) for k, v in sorted((mux.per_tenant_top1 or {}).items())}
+        rows.append({
+            "workloads": f"{a}+{b}",
+            "merged_top1": round(merged.top1, 3),
+            "mux_top1": round(mux.top1, 3),
+            "tenant0_top1": per.get("0", ""),
+            "tenant1_top1": per.get("1", ""),
+            "derived": f"delta={mux.top1 - merged.top1:+.3f}",
+        })
+        deltas.append(mux.top1 - merged.top1)
+    avg = float(np.mean(deltas)) if deltas else 0.0
+    rows.insert(0, {
+        "workloads": "AVG_MUX_GAIN", "merged_top1": "", "mux_top1": "",
+        "tenant0_top1": "", "tenant1_top1": "", "derived": f"delta={avg:+.3f}",
+    })
+    emit("table8_concurrent_mux", rows, t0)
+    # the reference's pin: per-tenant specialisation must not lose to the
+    # merged baseline on average; say which pair moved it
+    if avg < 0:
+        print(f"table8: AVG_MUX_GAIN {avg:+.3f} < 0 — per-pair breakdown:")
+        for r in rows[1:]:
+            print(f"  {r['workloads']:<24} merged={r['merged_top1']} mux={r['mux_top1']} {r['derived']}")
+        raise AssertionError(f"avg mux gain {avg:+.3f} < 0 (see breakdown above)")
+    return rows
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", nargs="+", choices=TABLES, default=list(TABLES))
     ap.add_argument("--scale", choices=sorted(SCALE_PRESETS), default="paper")
     ap.add_argument("--frozen", action="store_true", help="ours without fine-tuning (epochs 0)")
     ap.add_argument("--table", default=None, help="the pretrained table for ours (a memo pickle or .npz)")
+    ap.add_argument("--fresh", default=None, help="initial weights of the slots a table lacks (.npz; default: the "
+                                                  "port's own initialisation)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    ctx = Context(args.scale, frozen=args.frozen, table=args.table, device=args.device)
+    ctx = Context(args.scale, frozen=args.frozen, table=args.table, fresh=args.fresh, device=args.device)
     return {name: globals()[name](ctx) for name in args.only}
 
 

@@ -11,6 +11,11 @@ package memoises after pretraining (``repro.uvm.runtime._table_to_host``)::
 with numpy arrays for every tensor.  :func:`blob_from_npz` reads the same
 structure from the ``.npz`` that ``scripts/export_torch_reference.py``
 writes (params only: a frozen run re-initialises the optimizer moments).
+
+A table's fresh slots draw their weights from ``torch.Generator`` in the
+port and from ``jax.random`` in the JAX package.  To start a run from the
+JAX package's fresh weights, pass ``fresh``, a mapping slot -> params (see
+:func:`fresh_slots`), to :func:`table_from_blob` or :func:`fresh_table`.
 """
 from __future__ import annotations
 
@@ -40,11 +45,21 @@ def _tree(tree, device):
     return OptState(*(params_from_jax(x, device) for x in tree))
 
 
-def table_from_blob(blob: dict, pcfg: PredictorConfig, device) -> ModelTable:
-    """A :class:`ModelTable` on ``device`` from a host blob; slots the blob
-    lacks are initialised fresh by :func:`repro_torch.core.predictor.init`."""
+def fresh_table(pcfg: PredictorConfig, device, n_slots: int = 8, fresh: dict | None = None) -> ModelTable:
+    """An empty :class:`ModelTable` on ``device``.  A slot is initialised at
+    first use from ``fresh[slot]`` (a flat dict of arrays) where ``fresh``
+    has it, else by :func:`repro_torch.core.predictor.init`."""
     dev = resolve_device(device)
-    table = ModelTable(lambda s: predictor.init(s, pcfg, dev), n_slots=int(blob["n_slots"]))
+    fresh = fresh or {}
+    init = lambda s: params_from_jax(fresh[s], dev) if s in fresh else predictor.init(s, pcfg, dev)
+    return ModelTable(init, n_slots=n_slots)
+
+
+def table_from_blob(blob: dict, pcfg: PredictorConfig, device, fresh: dict | None = None) -> ModelTable:
+    """A :class:`ModelTable` on ``device`` from a host blob; slots the blob
+    lacks are initialised fresh as :func:`fresh_table` says."""
+    dev = resolve_device(device)
+    table = fresh_table(pcfg, dev, int(blob["n_slots"]), fresh)
     for s, e in blob["slots"].items():
         table.slots[int(s)] = Entry(
             params=_tree(e["params"], dev),
@@ -72,3 +87,9 @@ def blob_from_npz(path: str | Path) -> dict:
             else:
                 e["params"][name] = z[key]
         return {"n_slots": int(z["n_slots"]), "slots": slots}
+
+
+def fresh_slots(path: str | Path) -> dict[int, dict]:
+    """The initial params per slot stored in an ``.npz`` of
+    ``slot<s>/<param key>`` arrays (``fresh=`` of :func:`table_from_blob`)."""
+    return {s: e["params"] for s, e in blob_from_npz(path)["slots"].items()}

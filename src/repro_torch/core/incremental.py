@@ -37,6 +37,7 @@ from repro_torch.core.model_table import Entry, ModelTable
 from repro_torch.core.pattern import PatternClassifier
 from repro_torch.device import resolve_device
 from repro_torch.optim import adamw
+from repro_torch.util import pow2_bucket
 from repro_torch.uvm.trace import Trace
 
 
@@ -97,6 +98,46 @@ class Trainer:
         correct = torch.cat(correct)[:n].cpu().numpy()
         pred = torch.cat(pred)[:n].to(torch.int32).cpu().numpy()
         return correct, pred
+
+    #: the JAX package stacks a bucket of lanes into one vmapped dispatch
+    #: from this many lanes on; below it, it runs them one by one
+    MIN_VMAP_LANES = 4
+
+    def evaluate_many(self, params_list: list, fs_list: list, n_active_list: list) -> list:
+        """:meth:`evaluate` across lanes (one model and feature group per
+        lane: a mux's tenants, or many benchmarks), one ``(correct, pred)``
+        per lane; an empty lane gives empty arrays.  Every lane runs through
+        :meth:`evaluate` in turn, which is what the JAX package does below
+        ``MIN_VMAP_LANES`` lanes a bucket; stacking a bucket into one
+        launch per kernel belongs with ``run_ours_many`` (ROADMAP A2)."""
+        return [self.evaluate(p, fs, na) for p, fs, na in zip(params_list, fs_list, n_active_list)]
+
+    def train_group_many(self, entries: list, fs_list: list, n_active_list: list, *, in_et_list=None,
+                         use_lucir=False) -> list:
+        """:meth:`train_group` across lanes (one entry and group per lane),
+        entries updated in place.  An empty lane is skipped (its optimizer
+        state stays unset, its ``n_updates`` unbumped); the others get their
+        optimizer state first, then train one by one in the JAX package's
+        bucket order (sample bucket, step bucket, LUCIR eligibility, thrash
+        flags present).  As in :meth:`evaluate_many`, one launch per bucket
+        waits for ``run_ours_many`` (ROADMAP A2)."""
+        tc = self.tcfg
+        in_et_list = in_et_list if in_et_list is not None else [None] * len(entries)
+        buckets: dict = {}
+        for i, (entry, fs) in enumerate(zip(entries, fs_list)):
+            n = len(fs)
+            if n == 0:
+                continue
+            if entry.opt_state is None:
+                entry.opt_state = self.opt.init(entry.params)
+            use_l = use_lucir and entry.prev_params is not None
+            n_steps = len(self._train_schedule(n, np.random.default_rng(tc.seed)))
+            key = (pow2_bucket(n, 1024), pow2_bucket(n_steps, 16), use_l, in_et_list[i] is not None)
+            buckets.setdefault(key, []).append(i)
+        for lanes in buckets.values():
+            for i in lanes:
+                self.train_group(entries[i], fs_list[i], n_active_list[i], in_et=in_et_list[i], use_lucir=use_lucir)
+        return entries
 
     @torch.no_grad()
     def old_features(self, prev_params, fs: FeatureSet, idx):

@@ -1,6 +1,7 @@
 """`repro_torch.uvm.manager` — the streaming oversubscription-management API
-(port of ``repro.uvm.manager``; ``TenantMux``, health, snapshots and chaos
-injection are not ported yet)."""
+(port of ``repro.uvm.manager``: the single-workload manager and the
+multi-tenant ``TenantMux``; the health machine, snapshots, chaos injection
+and QoS budgets are not ported yet)."""
 from repro_torch.uvm.manager.core import (
     INTERVAL_FAULTS,
     Actions,
@@ -13,6 +14,7 @@ from repro_torch.uvm.manager.core import (
     prefetch_mask,
     prefetch_warm,
 )
+from repro_torch.uvm.manager.multi import MuxActions, TenantMux
 from repro_torch.uvm.manager.stream import OnlineFeatureStream
 
 __all__ = [
@@ -21,9 +23,11 @@ __all__ = [
     "EvalRequest",
     "FaultBatch",
     "ManagerConfig",
+    "MuxActions",
     "OnlineFeatureStream",
     "Outcomes",
     "OversubscriptionManager",
+    "TenantMux",
     "TrainRequest",
     "prefetch_mask",
     "prefetch_warm",

@@ -16,10 +16,12 @@ tensor on that device, so it feeds the simulator's ``learned`` eviction
 keys without a host round trip.  The classifier, the feature stream and the
 page-set chain are host numpy, as in the JAX package.
 
-Not ported yet (ROADMAP.md, queue B): the degraded-mode health machine
-(``ManagerConfig.health`` must be ``None``), snapshots, the component
-registry (only the ``dfa`` classifier and the ``setassoc`` table exist) and
-``TenantMux``.
+Not ported yet (ROADMAP.md, queue A3): the degraded-mode health machine
+(``ManagerConfig.health`` must be ``None``; :meth:`~OversubscriptionManager.
+guard_dispatch`, :meth:`~OversubscriptionManager.check_result` and
+:meth:`~OversubscriptionManager.note_fault` are its inert ``health=None``
+form, which ``TenantMux`` calls), snapshots and the component registry
+(only the ``dfa`` classifier and the ``setassoc`` table exist).
 """
 from __future__ import annotations
 
@@ -49,18 +51,26 @@ INTERVAL_FAULTS = 64
 class FaultBatch:
     """One batch of the demand stream: raw page ids plus the optional
     side-channel features the predictor consumes (absent channels are
-    zeros).  Tenant tags wait for ``TenantMux``."""
+    zeros).  ``tenant`` tags each access with its workload (any hashable
+    id, or a scalar for a whole-batch tag): a plain
+    :class:`OversubscriptionManager` ignores it, ``TenantMux`` demultiplexes
+    on it."""
 
     page: np.ndarray
     pc: np.ndarray | None = None
     tb: np.ndarray | None = None
     kernel: np.ndarray | None = None
+    tenant: np.ndarray | None = None
 
     def __post_init__(self):
         self.page = np.asarray(self.page)
         n = len(self.page)
         z = lambda a: np.zeros(n, np.int32) if a is None else np.asarray(a)
         self.pc, self.tb, self.kernel = z(self.pc), z(self.tb), z(self.kernel)
+        if self.tenant is not None and np.ndim(self.tenant) > 0:
+            self.tenant = np.asarray(self.tenant)
+            if len(self.tenant) != n:
+                raise ValueError(f"tenant tags must align with pages (expected {n}, got {len(self.tenant)})")
 
     def __len__(self) -> int:
         return len(self.page)
@@ -194,13 +204,17 @@ class _Pending:
 class OversubscriptionManager:
     """The classify -> predict -> policy-engine pipeline, one batch at a time,
     on one device.  Pass ``table`` to start from a Section V-A pretrained
-    model table (its params must live on ``device``)."""
+    model table (its params must live on ``device``); ``trainer`` and
+    ``freq_table`` inject a shared trainer or frequency table (``TenantMux``
+    does both), each on ``device``."""
 
     def __init__(
         self,
         cfg: ManagerConfig,
         *,
         table: ModelTable | None = None,
+        trainer: Trainer | None = None,
+        freq_table=None,
         device: str | torch.device = "cuda",
     ):
         if cfg.health is not None:
@@ -210,12 +224,12 @@ class OversubscriptionManager:
                                       f"builtin 'dfa' / 'setassoc' are ported")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.trainer = Trainer(cfg.predictor, cfg.train, cfg.kind, self.device)
+        self.trainer = trainer if trainer is not None else Trainer(cfg.predictor, cfg.train, cfg.kind, self.device)
         self.table = table if table is not None else ModelTable(
             lambda s: self.trainer.new_params(s), n_slots=cfg.train.table_slots
         )
         self.classifier = PatternClassifier()
-        self.freq_table = PredictionFrequencyTable(device=self.device)
+        self.freq_table = freq_table if freq_table is not None else PredictionFrequencyTable(device=self.device)
         pcfg = cfg.predictor
         self.vocab = DeltaVocab(pcfg.delta_vocab)
         self.stream = OnlineFeatureStream(
@@ -398,6 +412,22 @@ class OversubscriptionManager:
             raise RuntimeError("feedback_finish() without feedback_begin()")
         self.table.put(p.pat, entry)
         self._pending = None
+
+    # -- the health machine's hooks (inert: ``cfg.health`` is None) ----------
+
+    def guard_dispatch(self, req: EvalRequest | None) -> bool:
+        """Pre-dispatch health check: always ``True`` without the health
+        machine, which is not ported (``cfg.health`` is None)."""
+        return True
+
+    def check_result(self, corr, pred_cls, *, elapsed_s: float = 0.0) -> bool:
+        """Post-dispatch validation: always ``True`` without the health
+        machine."""
+        return True
+
+    def note_fault(self, exc: BaseException | str) -> None:
+        """Record a learned-path failure: a no-op without the health machine
+        (a lockstep driver such as ``TenantMux`` re-raises the failure)."""
 
     # -- internals -----------------------------------------------------------
 

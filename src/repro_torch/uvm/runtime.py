@@ -1,5 +1,5 @@
-"""The paper's online loop end to end, on one device (port of the
-single-tenant half of ``repro.uvm.runtime``).  Per group of accesses:
+"""The paper's online loop end to end, on one device (port of
+``repro.uvm.runtime``'s serial drivers).  Per group of accesses:
 
   1. ``manager.observe(FaultBatch)`` — classify the group, predict each
      access's next page delta with the pattern's model (strictly before
@@ -11,6 +11,13 @@ single-tenant half of ``repro.uvm.runtime``).  Per group of accesses:
   4. ``manager.feedback(Outcomes)`` — advance the flush cadence and
      fine-tune the pattern's model on the group (CE + LUCIR + the
      thrashing term, AdamW; ``TrainConfig.epochs == 0`` freezes it)
+
+A tenant-tagged trace (a :func:`repro_torch.uvm.trace.concurrent` merge,
+Section V-F) runs through a :class:`~repro_torch.uvm.manager.TenantMux` by
+default: one pipeline per tenant, their combined prefetches and counters
+staged into one simulator over the merged device; ``multi_tenant=False``
+drives it through one merged manager instead (the paper's baseline).  The
+lockstep ``run_ours_many`` is not ported (ROADMAP A2).
 
 Model, frequency table and simulator state live on the device (``"cuda"``
 unless the caller passes ``device="cpu"``).  Pretrained tables come from
@@ -41,8 +48,8 @@ from repro_torch.device import resolve_device
 from repro_torch.optim.adamw import OptState
 from repro_torch.uvm import simulator as S
 from repro_torch.uvm import timing
-from repro_torch.uvm.manager import FaultBatch, ManagerConfig, Outcomes, OversubscriptionManager
-from repro_torch.uvm.trace import Trace
+from repro_torch.uvm.manager import FaultBatch, ManagerConfig, Outcomes, OversubscriptionManager, TenantMux
+from repro_torch.uvm.trace import PAGES_PER_BLOCK, Trace
 
 @dataclasses.dataclass
 class LearnedRunResult:
@@ -54,6 +61,13 @@ class LearnedRunResult:
     per_group_acc: list
     warm_top1: float = 0.0  # excludes each pattern-model's first (cold) group
     n_accesses: int = 0
+    #: per-tenant strictly causal top-1 (mux runs only), keyed by str(tenant)
+    per_tenant_top1: dict | None = None
+    #: per-tenant {pages_thrashed, faults, accesses} (tenant-tagged runs
+    #: only), each event counted for the tenant of the access that caused it
+    per_tenant_stats: dict | None = None
+    #: final per-tenant QoS block budgets (QoS is not ported: always None)
+    budgets: dict | None = None
 
     def ipc(self, pred_overhead_us: float = 1.0, n_accesses: int | None = None) -> float:
         # the predictor runs asynchronously with kernel execution; only
@@ -98,22 +112,28 @@ def _unpickle(data: bytes):
     return _MemoUnpickler(io.BytesIO(data)).load()
 
 
-def load_pretrain_memo(path: str | Path, pcfg: PredictorConfig, device: str | torch.device = "cuda") -> ModelTable:
+def load_pretrain_memo(path: str | Path, pcfg: PredictorConfig, device: str | torch.device = "cuda",
+                       fresh: dict | None = None) -> ModelTable:
     """A JAX-package pretrain memo (``experiments/cache/pretrain_*.pkl``, the
-    raw host table or its checksummed envelope) as a table on ``device``."""
+    raw host table or its checksummed envelope) as a table on ``device``;
+    ``fresh`` as in :func:`repro_torch.convert.table_from_blob`."""
     obj = _unpickle(Path(path).read_bytes())
     if isinstance(obj, dict) and "sha256" in obj and "payload" in obj:
         if hashlib.sha256(obj["payload"]).hexdigest() != obj["sha256"]:
             raise ValueError(f"pretrain memo {path} fails its checksum")
         obj = _unpickle(obj["payload"])
-    return convert.table_from_blob(obj, pcfg, device)
+    return convert.table_from_blob(obj, pcfg, device, fresh)
 
 
-def load_pretrained(path: str | Path, pcfg: PredictorConfig, device: str | torch.device = "cuda") -> ModelTable:
-    """A pretrained table from a memo pickle or an exported ``.npz``."""
+def load_pretrained(path: str | Path, pcfg: PredictorConfig, device: str | torch.device = "cuda",
+                    fresh: dict | None = None) -> ModelTable:
+    """A pretrained table from a memo pickle or an exported ``.npz``.  Slots
+    it lacks start from ``fresh[slot]`` where given (a mapping slot ->
+    params, e.g. :func:`repro_torch.convert.fresh_slots` of the JAX
+    package's initial weights), else from the port's own initialisation."""
     if Path(path).suffix == ".npz":
-        return convert.table_from_blob(convert.blob_from_npz(path), pcfg, device)
-    return load_pretrain_memo(path, pcfg, device)
+        return convert.table_from_blob(convert.blob_from_npz(path), pcfg, device, fresh)
+    return load_pretrain_memo(path, pcfg, device, fresh)
 
 
 def pretrain_table(
@@ -204,8 +224,46 @@ def manager_for(
     return OversubscriptionManager(cfg, table=table, device=device)
 
 
+def mux_for(
+    trace: Trace,
+    pcfg: PredictorConfig | None = None,
+    tcfg: TrainConfig | None = None,
+    *,
+    oversubscription: float = 1.25,
+    kind: str = "transformer",
+    table: ModelTable | None = None,
+    use_thrash_term: bool = True,
+    use_lucir: bool = True,
+    shared_freq_table: bool = False,
+    reclass_interval: int = 0,
+    reclass_hysteresis: int = 2,
+    health=None,
+    trainer: Trainer | None = None,
+    qos=None,
+    device: str | torch.device = "cuda",
+) -> TenantMux:
+    """A :class:`TenantMux` for a tenant-tagged concurrent trace (Section
+    V-F): one manager per tenant over the merged geometry (tenants hold
+    disjoint page ranges of the shared device, so every pipeline sees global
+    page ids).  ``table`` is a Section V-A master each tenant clones.
+    ``qos`` raises ``NotImplementedError`` (ROADMAP A3)."""
+    if trace.tenant is None:
+        raise ValueError(f"trace {trace.name!r} has no tenant tags; use manager_for() instead")
+    cfg = _manager_config(
+        trace, pcfg or PredictorConfig(), tcfg or TrainConfig(),
+        oversubscription=oversubscription, kind=kind,
+        use_thrash_term=use_thrash_term, use_lucir=use_lucir,
+        reclass_interval=reclass_interval, reclass_hysteresis=reclass_hysteresis,
+        health=health,
+    )
+    tenants = [int(t) for t in np.unique(trace.tenant)]
+    return TenantMux(cfg, tenants, shared_freq_table=shared_freq_table, auto_create=False, tables=table,
+                     trainer=trainer, qos=qos, device=resolve_device(device))
+
+
 def _group_batch(trace: Trace, g0: int, g1: int) -> FaultBatch:
-    return FaultBatch(trace.page[g0:g1], trace.pc[g0:g1], trace.tb[g0:g1], trace.kernel[g0:g1])
+    return FaultBatch(trace.page[g0:g1], trace.pc[g0:g1], trace.tb[g0:g1], trace.kernel[g0:g1],
+                      tenant=None if trace.tenant is None else trace.tenant[g0:g1])
 
 
 def _apply_actions(state: S.SimState, actions, nb: int, cap: int, evict_pref=None) -> S.SimState:
@@ -220,6 +278,42 @@ def _apply_actions(state: S.SimState, actions, nb: int, cap: int, evict_pref=Non
     return S.apply_prefetch(state, mask, capacity=cap, policy="learned", evict_pref=evict_pref)
 
 
+def _result(mgr, state: S.SimState, n_accesses: int, per_tenant_stats: dict | None = None) -> LearnedRunResult:
+    return LearnedRunResult(
+        S.state_stats(state), mgr.top1, mgr.n_predictions, mgr.n_classes,
+        mgr.n_models, mgr.per_group, mgr.warm_top1, n_accesses,
+        per_tenant_top1=mgr.per_tenant_top1 if isinstance(mgr, TenantMux) else None,
+        per_tenant_stats=per_tenant_stats,
+    )
+
+
+class _TenantLedger:
+    """Per-tenant fairness accounting for one tenant-tagged trace: each
+    group's thrash and fault events go to the tenant of the access that
+    caused them.  (The reference also releases a departed tenant from the
+    mux, but only under QoS budgets, which are not ported.)"""
+
+    def __init__(self, trace: Trace):
+        self.trace = trace
+        self.stats = {int(t): {"pages_thrashed": 0, "faults": 0, "accesses": 0} for t in np.unique(trace.tenant)}
+
+    def account(self, g0: int, g1: int, outs: dict) -> None:
+        """``outs`` is ``run_segment``'s per-access outputs, already host
+        arrays: this adds no device sync."""
+        tn = self.trace.tenant[g0:g1]
+        th = np.asarray(outs["thrash"])
+        fa = np.asarray(outs["fault"])
+        for t in np.unique(tn):
+            m = tn == t
+            d = self.stats[int(t)]
+            d["pages_thrashed"] += int(th[m].sum()) * PAGES_PER_BLOCK
+            d["faults"] += int(fa[m].sum())
+            d["accesses"] += int(m.sum())
+
+    def result(self) -> dict:
+        return {str(t): dict(d) for t, d in self.stats.items()}
+
+
 def run_ours(
     trace: Trace,
     pcfg: PredictorConfig | None = None,
@@ -230,20 +324,42 @@ def run_ours(
     table: ModelTable | None = None,
     use_thrash_term: bool = True,
     use_lucir: bool = True,
-    manager: OversubscriptionManager | None = None,
+    manager: OversubscriptionManager | TenantMux | None = None,
+    multi_tenant: bool | None = None,
+    shared_freq_table: bool = False,
     reclass_interval: int = 0,
     reclass_hysteresis: int = 2,
     health=None,
+    qos=None,
     device: str | torch.device = "cuda",
 ) -> LearnedRunResult:
     """Drive one trace through the streaming manager + simulator on
-    ``device`` (a passed ``manager`` brings its own device)."""
-    if trace.tenant is not None:
-        raise NotImplementedError("tenant-tagged traces need TenantMux, which is not ported yet")
+    ``device`` (a passed ``manager`` brings its own device).
+
+    A tenant-tagged trace goes through a :class:`TenantMux` unless
+    ``multi_tenant=False`` (one manager over the merged stream, the Section
+    V-F baseline); ``shared_freq_table`` gives the mux's tenants one
+    frequency table.  Either way the result carries each tenant's
+    ``per_tenant_stats``.  ``qos`` raises ``NotImplementedError`` (ROADMAP
+    A3)."""
     pcfg = pcfg or PredictorConfig()
     tcfg = tcfg or TrainConfig()
+    if multi_tenant is None:
+        multi_tenant = trace.tenant is not None
+    if qos is not None:
+        if not multi_tenant:
+            raise ValueError("qos= requires a tenant-tagged multi-tenant run")
+        raise NotImplementedError("run_ours(qos=) needs the QoS budgets (uvm/qos), not ported yet (ROADMAP A3)")
     if manager is not None:
         mgr = manager
+    elif multi_tenant:
+        mgr = mux_for(
+            trace, pcfg, tcfg, oversubscription=oversubscription, kind=kind,
+            table=table, use_thrash_term=use_thrash_term, use_lucir=use_lucir,
+            shared_freq_table=shared_freq_table,
+            reclass_interval=reclass_interval, reclass_hysteresis=reclass_hysteresis,
+            health=health, device=device,
+        )
     else:
         mgr = manager_for(
             trace, pcfg, tcfg, oversubscription=oversubscription, kind=kind,
@@ -255,19 +371,22 @@ def run_ours(
     state = S.init_state(nb, mgr.device)
     blocks = trace.block.astype(np.int32)
     nxt = S.next_use_for(trace)
+    ledger = _TenantLedger(trace) if trace.tenant is not None else None
     n = len(trace)
+    # the manager's own schedule sets the batch cadence
     G = mgr.cfg.train.group_size
     for g0 in range(0, n, G):
         g1 = min(g0 + G, n)
         actions = mgr.observe(_group_batch(trace, g0, g1))
-        state = _apply_actions(state, actions, nb, cap)
+        # the QoS leading victim key (None: no budgets, the plain program)
+        ep = mgr.evict_pref(state.resident) if isinstance(mgr, TenantMux) else None
+        state = _apply_actions(state, actions, nb, cap, evict_pref=ep)
         state, outs = S.run_segment(
             state, blocks[g0:g1], nxt[g0:g1],
-            capacity=cap, policy="learned", prefetch="demand", n_valid=trace.n_blocks,
+            capacity=cap, policy="learned", prefetch="demand", n_valid=trace.n_blocks, evict_pref=ep,
         )
         mgr.feedback(Outcomes(was_evicted=outs["was_evicted"], fault_count=int(state.fault_count)))
-    return LearnedRunResult(
-        S.state_stats(state), mgr.top1, mgr.n_predictions, mgr.n_classes,
-        mgr.n_models, mgr.per_group, mgr.warm_top1, n,
-    )
+        if ledger is not None:
+            ledger.account(g0, g1, outs)
+    return _result(mgr, state, n, None if ledger is None else ledger.result())
 

@@ -1,6 +1,6 @@
 """Memory-access traces + synthetic generators for the paper's 11 benchmarks
-(the port's copy of ``repro.uvm.trace``; multi-tenant merges and the
-fault-log interchange are not ported yet).
+(the port's copy of ``repro.uvm.trace``, with its Section V-F concurrent
+merge; the fault-log interchange is not ported yet).
 
 The paper traces real CUDA benchmarks under GPGPU-Sim; without a GPU we
 generate seeded synthetic traces whose *structure* matches the published
@@ -335,3 +335,58 @@ CATEGORY = {
 
 def get_trace(name: str, scale: float = 1.0) -> Trace:
     return BENCHMARKS[name](scale=scale)
+
+
+def concurrent(traces: list[Trace], seed: int = 0, slice_len: int = 256,
+               starts: list[int] | None = None) -> Trace:
+    """Interleave multiple workloads in disjoint page ranges (Section V-F).
+
+    Interleaving is at scheduler-slice granularity (not per access): each
+    turn picks a live tenant at random (``np.random.default_rng(seed)``)
+    and takes its next ``slice_len`` accesses, so the migration stream keeps
+    per-workload temporal locality while the global stream mixes pattern
+    classes.  Tenant ``w``'s pages move past the earlier tenants' pages, its
+    pcs by ``16 * w`` and its kernel ids by ``64 * w``.
+
+    The merge is tenant-tagged: ``.tenant`` carries each access's workload
+    index and ``tenant_names`` maps it back to the constituent trace's name.
+    ``starts[i]`` delays tenant ``i``'s admission until at least that many
+    merged accesses have been produced, and a tenant whose trace runs out
+    leaves the schedule.  A tenant that contributes no access (an empty
+    trace) keeps its index.  When every remaining tenant is still waiting to
+    join, the clock jumps to the earliest joiner.
+    """
+    rng = np.random.default_rng(seed)
+    offset = 0
+    parts = []
+    for t in traces:
+        parts.append((t.page + offset, t.pc, t.tb, t.kernel))
+        offset += t.n_pages
+    joins = [0] * len(parts) if starts is None else [int(s) for s in starts]
+    if len(joins) != len(parts):
+        raise ValueError(f"starts must align with traces (expected {len(parts)}, got {len(joins)})")
+    cursors = [0] * len(parts)
+    produced = 0
+    slices = []
+    while any(cursors[i] < len(p[0]) for i, p in enumerate(parts)):
+        live = [i for i, p in enumerate(parts) if cursors[i] < len(p[0]) and joins[i] <= produced]
+        if not live:  # every remaining tenant joins later: jump to the earliest one
+            nxt = min(joins[i] for i, p in enumerate(parts) if cursors[i] < len(p[0]))
+            live = [i for i, p in enumerate(parts) if cursors[i] < len(p[0]) and joins[i] <= nxt]
+        w = int(rng.choice(live))
+        lo = cursors[w]
+        hi = min(lo + slice_len, len(parts[w][0]))
+        slices.append((w, lo, hi))
+        cursors[w] = hi
+        produced += hi - lo
+    page, pc, tb, kern, tnt = [], [], [], [], []
+    for w, lo, hi in slices:
+        p = parts[w]
+        page.append(p[0][lo:hi])
+        pc.append(p[1][lo:hi] + 16 * w)
+        tb.append(p[2][lo:hi])
+        kern.append(p[3][lo:hi] + 64 * w)
+        tnt.append(np.full(hi - lo, w, np.int32))
+    cat = lambda chunks: (np.concatenate(chunks) if chunks else np.zeros(0, np.int64)).astype(np.int32)
+    return Trace("+".join(t.name for t in traces), cat(page), cat(pc), cat(tb), cat(kern), offset,
+                 tenant=cat(tnt), tenant_names=tuple(t.name for t in traces))

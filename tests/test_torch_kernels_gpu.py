@@ -699,3 +699,30 @@ def test_tree_cell_and_uvmsmart_on_the_card_equal_the_cpu(dev):
     before = kernels.LAUNCHES["evict_select"]
     assert run_uvmsmart(tr, device=dev) == run_uvmsmart(tr, device="cpu")
     assert kernels.LAUNCHES["evict_select"] > before
+
+
+@pytest.mark.parametrize("kw", [{}, {"shared_freq_table": True}, {"multi_tenant": False}],
+                         ids=["mux", "mux-shared", "merged"])
+def test_tagged_run_ours_on_the_card_equals_the_cpu(dev, kw):
+    """The tenant path of ``run_ours`` (frozen, from the SMOKE pretrain memo)
+    on a two-tenant merge: the card's run equals the port's CPU run in every
+    counter and accuracy, with each frozen-path kernel launched (the
+    frequency table's update in five or six rounds on the CPU)."""
+    from pathlib import Path
+
+    from repro_torch.configs.predictor_paper import SMOKE
+    from repro_torch.core.incremental import TrainConfig
+    from repro_torch.uvm import runtime as R
+    from repro_torch.uvm import trace as T
+
+    memo = Path(__file__).resolve().parent.parent / "experiments" / "cache" / "pretrain_e8919be312ea6abc.pkl"
+    tr = T.concurrent([T.get_trace(n, 0.4).slice(0, 3000) for n in ("StreamTriad", "Hotspot")], seed=0,
+                      slice_len=512)
+    tc = TrainConfig(group_size=512, epochs=0, batch_size=64)
+    before = dict(kernels.LAUNCHES)
+    got = R.run_ours(tr, SMOKE, tc, table=R.load_pretrain_memo(memo, SMOKE, dev), device=dev, **kw)
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in ("evict_select", "freq_update", "flash_attention")}
+    want = R.run_ours(tr, SMOKE, tc, table=R.load_pretrain_memo(memo, SMOKE, "cpu"), device="cpu", **kw)
+    fields = ("stats", "top1", "warm_top1", "per_group_acc", "n_predictions", "per_tenant_top1", "per_tenant_stats")
+    assert [getattr(got, f) for f in fields] == [getattr(want, f) for f in fields]
+    assert min(launched.values()) > 0, launched

@@ -61,6 +61,15 @@ def test_tables_entry_point_imports_no_jax():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_multi_tenant_modules_import_no_jax():
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    child = _SERVE_CHILD.replace("import repro_torch.launch.serve", "import repro_torch.uvm.manager.multi, "
+                                 "repro_torch.bench.tables, repro_torch.launch.serve")
+    out = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def test_port_sources_name_no_jax_import():
     for path in (SRC / "repro_torch").rglob("*.py"):
         for line in path.read_text().splitlines():
@@ -110,6 +119,19 @@ def test_entry_points_default_to_the_card():
         tables.main(["--only", "table6"])
     assert S.run(tr, device="cpu").state.device.type == "cpu"
     assert tables.Context(device="cpu").device.type == "cpu"
+    # the tenant path: mux_for, the tagged run_ours, TenantMux
+    from repro_torch.uvm.manager import TenantMux
+
+    merge = T.concurrent([tr, T.get_trace("ATAX", 0.1)], slice_len=256)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        R.mux_for(merge, SMOKE)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        R.run_ours(merge, SMOKE, TrainConfig(epochs=0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        R.run_ours(merge, SMOKE, TrainConfig(epochs=0), multi_tenant=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TenantMux(ManagerConfig(predictor=SMOKE), (0, 1))
+    assert R.mux_for(merge, SMOKE, device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PredictionFrequencyTable()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -178,5 +200,6 @@ def test_unported_options_raise():
         OversubscriptionManager(ManagerConfig(predictor=SMOKE, freq_table="lru"), device="cpu")
     tr = T.get_trace("AddVectors", 0.1)
     tagged = T.Trace(tr.name, tr.page, tr.pc, tr.tb, tr.kernel, tr.n_pages, tenant=tr.page * 0)
-    with pytest.raises(NotImplementedError, match="TenantMux"):
-        R.run_ours(tagged, SMOKE, TrainConfig(epochs=0), device="cpu")
+    # a tagged trace runs through TenantMux now; its QoS budgets are not ported
+    with pytest.raises(NotImplementedError, match="QoS"):
+        R.run_ours(tagged, SMOKE, TrainConfig(epochs=0), qos=object(), device="cpu")

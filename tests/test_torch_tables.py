@@ -206,7 +206,7 @@ def test_table_runner_rows_equal_jax(monkeypatch, tmp_path, capsys):
     pctx.pcfg = PC.SMOKE  # the memo's predictor
     pctx = pctx.with_train(PI.TrainConfig(**tc))
     assert (pctx.scale, pctx.cap, pctx.tcfg.epochs) == (scale, cap, 0)
-    for name in PTAB.TABLES:
+    for name in ("table1", "table2", "table3", "table4", "table6"):  # VII and VIII: tests/test_torch_multi.py
         want = getattr(JTAB, name)(jctx)
         got = getattr(PTAB, name)(pctx)
         assert got == want, name
