@@ -85,7 +85,8 @@ Phases, in order; any failure exits non-zero:
 7. train    — the training path against the JAX package's runs on a CPU:
               (a) the fine-tune group recorded in ``experiments/torch/
               train_hotspot_ref.npz`` (24 steps of ``TrainConfig()`` at
-              ``CONFIG`` from its slot of the pretrained table): the first
+              ``CONFIG`` from its slot of the pretrained table, params and
+              AdamW moments): the first
               steps' loss and gradient norm and the update within the
               ``TRAIN_*`` limits, ``thrash_ce_fwd``/``_bwd`` launched once
               per step and ``flash_attention_bwd`` once per step, block and
@@ -139,6 +140,28 @@ Phases, in order; any failure exits non-zero:
               and the host syncs of another.  The long pairs' fine-tuned
               runs and the tables themselves are the runner's
               (``python -m repro_torch.bench.tables --only table7 table8``).
+10. figures — a subset of the paper's Figs. 3, 4, 11, 12, 13 and 14
+              through the figure runner (``repro_torch.bench.figures``) at
+              the ``paper`` preset against the JAX package's cells and rows
+              (``experiments/torch/figures_paper_ref.json``), reading phase
+              8's memoised cells: (a) Fig. 3's ``lru`` + ``tree`` at x1.0,
+              x1.1 and x1.5 on ``FIG3_BENCH`` (x1.25 is phase 8's), every
+              counter and every row equal; (b) UVMSmart at x1.5 on them,
+              counters equal, and the IPC of every integer cell Figs. 3, 13
+              and 14 read from phases 8 and 10 within ``IPC_RTOL`` of the
+              JAX package's float64; (c) the fine-tuned ``ours`` at x1.5
+              (Fig. 14) and without the thrashing term (Fig. 12) on
+              ``FIG_TUNED``, (d) Fig. 4's ``offline`` and ``online_single``
+              and the first link of Fig. 11's chain (from
+              ``experiments/torch/pretrain_paper_s123.npz``) on it, each
+              within phase 7 (b)'s limits (``scripts/rehearse_figures_cpu.py``
+              rehearses them); (e) launches per column (``evict_select`` in
+              every simulator column, the attention forward and backward and
+              both ``thrash_ce`` kernels in every one that trains,
+              ``freq_update`` wherever the prefetch gate opened); (f) each
+              column's host seconds, compressed events and gate openings.
+              The full figures are the runner's (``python -m
+              repro_torch.bench.figures --scale paper``).
 
 The last lines are the card's ``nvidia-smi`` line, a ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -250,15 +273,15 @@ ATTN_BWD_TOL = (1e-4, 1e-5)
 # PERF.md section 2).  AdamW steps on gradient elements near the float32
 # rounding of a very confident model (nll about 1e-5 at logits of 16), so two
 # summation orders drift apart within a group and the online loop amplifies
-# it.  (a) one fine-tune group: the first steps' loss and gradient norm
-# (CPU 9.2e-4, 1.2e-3; mu unscaled 0.13; LUCIR dropped 1.0) and the update's
-# distance from the reference's over the update's own norm (CPU 0.018; the
-# defects 0.25 and 1.25)
+# it.  (a) one fine-tune group from its slot's params and AdamW moments: the
+# first steps' loss and gradient norm (CPU 5.6e-4, 1.2e-3; mu unscaled 0.15;
+# LUCIR dropped 0.95) and the update's distance from the reference's over
+# the update's own norm (CPU 5.8e-4; the defects 0.18 and 0.99)
 TRAIN_STEPS_HELD, TRAIN_STEP_RTOL, TRAIN_UPDATE_RTOL = 4, 1e-2, 0.08
 # (b) the fine-tuned run: top-1 and the counters (correct CPU runs that
 # differ only in thread count or one ulp of the weights: up to 0.012 and
-# 0.42; mu unscaled 0.028 and 0.35), the first groups' accuracies (CPU
-# exact).  Only top-1 separates a defect here; the bias-correction and
+# 0.42; mu unscaled 0.028 and 0.35; from the moments, CPU 0.011 and 0.18),
+# the first groups' accuracies (CPU exact).  Only top-1 separates a defect here; the bias-correction and
 # LUCIR defects move (b) no more than summation order does, (a) rejects the
 # LUCIR one and (c), whose slots start at step 0, all three
 RUN_TOP1_ATOL, RUN_STATS_RTOL, RUN_GROUPS_HELD, RUN_GROUP_ACC_ATOL = 0.02, 0.4, 4, 2.5e-3
@@ -1673,7 +1696,7 @@ def _sync(dev) -> None:
 def train_group_run(dev) -> dict:
     """Phase 7 (a) up to its checks: the reference's recorded fine-tune group
     (``TrainConfig()`` at ``CONFIG``: 24 steps, LUCIR and the thrashing term
-    on) from its slot of the pretrained table with fresh moments, on
+    on) from its slot of the pretrained table, params and AdamW moments, on
     ``dev``.  Returns each step's loss and gradient norm, the distance of
     the update from the reference's and the launches."""
     import numpy as np
@@ -1688,7 +1711,8 @@ def train_group_run(dev) -> dict:
 
     ref, meta = load_ref(TRAIN_REF)
     slot = R.load_pretrained(WEIGHTS, CONFIG, dev).slots[meta["slot"]]
-    check(slot.step == meta["step"] and slot.opt_state is None, "the table's slot is not the reference group's start")
+    check(slot.step == meta["step"] and slot.opt_state is not None,
+          "the table's slot is not the reference group's start (its step and moments)")
     fs = FeatureSet(*(ref[f"group/{f}"] for f in ("page", "delta", "pc", "tb", "label", "label_page", "t_index")))
     trainer = Trainer(CONFIG, TrainConfig(**meta["train"]), device=dev)
     metrics = []
@@ -1700,7 +1724,8 @@ def train_group_run(dev) -> dict:
         return out
 
     trainer._train_step = recording
-    entry = Entry(params=clone_tree(slot.params), prev_params=clone_tree(slot.params), step=slot.step)
+    entry = Entry(params=clone_tree(slot.params), prev_params=clone_tree(slot.params),
+                  opt_state=clone_tree(slot.opt_state), step=slot.step)
     _sync(dev)
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1750,7 +1775,7 @@ def train_group_check(dev) -> dict:
 
 def fine_tuned_run(dev, spent: dict | None = None):
     """The reference's fine-tuned ``run_ours`` (Hotspot x1.5, ``TrainConfig()``,
-    ``CONFIG``) from the pretrained table, whose slots have no optimizer
+    ``CONFIG``) from the pretrained table, every slot with its AdamW
     moments, on ``dev``; with ``spent``, host seconds per stage."""
     from repro_torch.configs.predictor_paper import CONFIG
     from repro_torch.core.incremental import TrainConfig, Trainer
@@ -1777,16 +1802,11 @@ def fine_tuned_run(dev, spent: dict | None = None):
 
 
 def run_distances(res) -> dict:
-    """How far a fine-tuned run is from the reference's."""
+    """How far the fine-tuned Hotspot run is from the reference's
+    (``run_distance``), with its per-group accuracies."""
     ref, meta = load_ref(TRAIN_REF)
-    want = meta["run"]
-    rel = {k: abs(res.stats[k] - want["stats"][k]) / want["stats"][k]
-           for k in ("pages_thrashed", "faults", "migrated_blocks")}
-    first = [abs(a - b) for a, b in zip(res.per_group_acc[:RUN_GROUPS_HELD], ref["per_group_acc"][:RUN_GROUPS_HELD])]
-    return {"stats": res.stats, "top1": res.top1, "top1_diff": abs(res.top1 - want["top1"]), "stats_rtol": rel,
-            "n_predictions_equal": res.n_predictions == want["n_predictions"],
-            "occupancy_equal": res.stats["occupancy"] == want["stats"]["occupancy"],
-            "first_groups_acc_diff": max(first), "per_group_acc": res.per_group_acc}
+    return {**run_distance(res, {**meta["run"], "per_group_acc": ref["per_group_acc"].tolist()}),
+            "per_group_acc": res.per_group_acc}
 
 
 def fine_tuned_check(dev) -> dict:
@@ -1923,6 +1943,31 @@ def _rel(got: int, want: int) -> float:
     return abs(got - want) / want if want else float(got != want)
 
 
+def run_distance(res, want: dict) -> dict:
+    """How far a fine-tuned ``run_ours`` is from the reference's, by phase 7
+    (b)'s measures (``check_tuned`` reads them)."""
+    return {"stats": res.stats, "top1": res.top1, "top1_diff": abs(res.top1 - want["top1"]),
+            "stats_rtol": {k: _rel(res.stats[k], want["stats"][k]) for k in ("pages_thrashed", "faults",
+                                                                            "migrated_blocks")},
+            "n_predictions_equal": res.n_predictions == want["n_predictions"],
+            "occupancy_equal": res.stats["occupancy"] == want["stats"]["occupancy"],
+            "first_groups_acc_diff": max(abs(x - y) for x, y in zip(res.per_group_acc[:RUN_GROUPS_HELD],
+                                                                    want["per_group_acc"][:RUN_GROUPS_HELD])),
+            "equal": (res.stats, res.top1, res.per_group_acc) == (want["stats"], want["top1"], want["per_group_acc"])}
+
+
+def protocol_distance(res, want: dict) -> dict:
+    """How far a protocol run is from the reference's, by the same measures
+    (phases 9 and 10)."""
+    return {"top1": res.top1, "top1_diff": abs(res.top1 - want["top1"]),
+            "n_predictions_equal": (res.n_samples, res.n_models, res.n_classes) == (want["n_samples"],
+                                                                                   want["n_models"],
+                                                                                   want["n_classes"]),
+            "first_groups_acc_diff": max(abs(x - y) for x, y in zip(res.per_group[:RUN_GROUPS_HELD],
+                                                                    want["per_group"][:RUN_GROUPS_HELD])),
+            "equal": (res.top1, list(res.per_group)) == (want["top1"], want["per_group"])}
+
+
 def tables_columns(dev, ctx, tuned) -> dict:
     """Phase 8's columns, each over its benchmarks with every launch count
     set to 0 just before and read just after: host seconds (up to a
@@ -1980,7 +2025,8 @@ def tables_path(dev) -> dict:
     """Phase 8: the port's table runner at the paper preset and x1.25 over the
     11 benchmarks against the JAX package's cells and rows
     (``experiments/torch/tables_paper_ref.json``).  Returns the launches of
-    all its columns together."""
+    all its columns together, and its frozen and fine-tuned contexts, whose
+    memoised cells phase 10 reads."""
     from repro_torch.bench import tables as TB
     from repro_torch.core.incremental import TrainConfig
     from repro_torch.uvm import simulator as S
@@ -1988,7 +2034,7 @@ def tables_path(dev) -> dict:
     ref = json.loads(TABLES_REF.read_text())
     check((ref["preset"], ref["scale"], ref["cap"], ref["oversubscription"]) == ("paper", *TB.SCALE_PRESETS["paper"], 1.25),
           "the reference file is not the paper preset at x1.25")
-    ctx = TB.Context("paper", frozen=True, device=dev)
+    ctx = TB.Context("paper", frozen=True, fresh=FRESH, device=dev)
     tuned = ctx.with_train(TrainConfig(**ref["train"]["fine_tuned"]), benches=list(TABLES_TUNED))
     check(list(ref["benchmarks"]) == ctx.benches and dataclasses.asdict(ctx.tcfg) == ref["train"]["frozen"],
           "the reference's benchmarks or frozen schedule are not the runner's")
@@ -2015,16 +2061,7 @@ def tables_path(dev) -> dict:
         check(getattr(TB, name)(ctx) == ref["tables"][name], f"{name}'s rows differ from the JAX package's")
     check(TB.table6(ctx) == ref["tables"]["table6_frozen"], "Table VI's rows (frozen ours) differ from the JAX package's")
     # (c) the fine-tuned ours on the subset, within phase 7 (b)'s limits
-    dist = {}
-    for b in tuned.benches:
-        r, w = tuned.ours(b), ref["benchmarks"][b]["ours_fine_tuned"]
-        dist[b] = {"stats": r.stats, "top1": r.top1, "top1_diff": abs(r.top1 - w["top1"]),
-                   "stats_rtol": {k: _rel(r.stats[k], w["stats"][k]) for k in ("pages_thrashed", "faults",
-                                                                                "migrated_blocks")},
-                   "n_predictions_equal": r.n_predictions == w["n_predictions"],
-                   "occupancy_equal": r.stats["occupancy"] == w["stats"]["occupancy"],
-                   "first_groups_acc_diff": max(abs(x - y) for x, y in zip(r.per_group_acc[:RUN_GROUPS_HELD],
-                                                                           w["per_group_acc"][:RUN_GROUPS_HELD]))}
+    dist = {b: run_distance(tuned.ours(b), ref["benchmarks"][b]["ours_fine_tuned"]) for b in tuned.benches}
     print("  (c) fine-tuned ours: " + json.dumps(dist))
     for b, d in dist.items():
         check(d["n_predictions_equal"] and d["occupancy_equal"], f"{b}: prediction count or occupancy differ")
@@ -2045,7 +2082,8 @@ def tables_path(dev) -> dict:
     got = profile_run("Hotspot lru+tree", lambda: S.run_batch(ctx.trace("Hotspot"), [("lru", "tree", 1.25)],
                                                                 device=dev))
     check(got == [ref["benchmarks"]["Hotspot"]["sim"]["lru+tree"]], "the profiled Hotspot lru+tree cell differs")
-    return {k: sum(c["launches"][k] for c in columns.values()) for k in next(iter(columns.values()))["launches"]}
+    launches = {k: sum(c["launches"][k] for c in columns.values()) for k in next(iter(columns.values()))["launches"]}
+    return launches, ctx, tuned
 
 
 # --- phase 9: concurrent workloads (Section V-F) -------------------------------------
@@ -2059,7 +2097,7 @@ CONCURRENT_TUNED = ("StreamTriad+2DCONV", "NW+2DCONV")
 # the runs of (c) and (d) that scripts/rehearse_concurrent_cpu.py gives equal
 # to the JAX package's, to the last digit: held equal here, the others within
 # phase 7 (b)'s limits
-CONCURRENT_EQUAL = ("StreamTriad+2DCONV|mux", "StreamTriad+2DCONV|online_single", "NW+2DCONV|mux", "NW+2DCONV|ours")
+CONCURRENT_EQUAL = ("StreamTriad+2DCONV|mux", "NW+2DCONV|mux", "NW+2DCONV|merged", "NW+2DCONV|ours")
 # the mux run whose two tenants both open the prefetch gate (the rehearsal
 # updates each tenant's table: 1 and 3 times), so both tables must launch
 # freq_update; in the frozen runs only Hotspot's gate opens
@@ -2087,16 +2125,10 @@ def run_fields(res) -> dict:
 
 
 def tuned_distance(res, want: dict) -> dict:
-    """How far a fine-tuned ``run_ours`` is from the reference's run, by
-    phase 7 (b)'s measures."""
-    return {"top1": res.top1, "top1_diff": abs(res.top1 - want["top1"]),
-            "stats_rtol": {k: _rel(res.stats[k], want["stats"][k]) for k in ("pages_thrashed", "faults",
-                                                                            "migrated_blocks")},
-            "n_predictions_equal": res.n_predictions == want["n_predictions"],
-            "occupancy_equal": res.stats["occupancy"] == want["stats"]["occupancy"],
-            "first_groups_acc_diff": max(abs(x - y) for x, y in zip(res.per_group_acc[:RUN_GROUPS_HELD],
-                                                                    want["per_group_acc"][:RUN_GROUPS_HELD])),
-            "equal": run_fields(res) == {k: want[k] for k in run_fields(res)}
+    """How far a tenant-tagged fine-tuned ``run_ours`` is from the
+    reference's run, by phase 7 (b)'s measures; equal counts each tenant's
+    top-1 and stats too."""
+    return {**run_distance(res, want), "equal": run_fields(res) == {k: want[k] for k in run_fields(res)}
             and res.per_group_acc == want["per_group_acc"]}
 
 
@@ -2246,14 +2278,7 @@ def concurrent_path(dev) -> dict:
         for t in ("mux", "merged"):
             dist[f"{key}|{t}"] = tuned_distance(runs[f"{key}|{t}|tuned"], ref["pairs_ref"][key]["runs"][f"{t}_fine_tuned"])
         for m in ("online_single", "ours"):
-            r, want = runs[f"{key}|{m}"], ref["pairs_ref"][key]["runs"][f"table7_{m}"]
-            dist[f"{key}|{m}"] = {
-                "top1": r.top1, "top1_diff": abs(r.top1 - want["top1"]),
-                "n_predictions_equal": (r.n_samples, r.n_models, r.n_classes) == (want["n_samples"], want["n_models"],
-                                                                                  want["n_classes"]),
-                "first_groups_acc_diff": max(abs(x - y) for x, y in zip(r.per_group[:RUN_GROUPS_HELD],
-                                                                        want["per_group"][:RUN_GROUPS_HELD])),
-                "equal": (r.top1, r.per_group) == (want["top1"], want["per_group"])}
+            dist[f"{key}|{m}"] = protocol_distance(runs[f"{key}|{m}"], ref["pairs_ref"][key]["runs"][f"table7_{m}"])
     print("  (c), (d) " + json.dumps(dist))
     for name, d in dist.items():
         check_tuned(name, d)
@@ -2276,6 +2301,139 @@ def concurrent_path(dev) -> dict:
     groups = -(-len(w) // ctx.tcfg.group_size)
     print(f"  synchronizing operations of the frozen StreamTriad+2DCONV mux run ({groups} groups): {json.dumps(syncs)}")
     return {k: sum(c["launches"][k] for c in columns.values()) for k in next(iter(columns.values()))["launches"]}
+
+
+# --- phase 10: the paper's figures ------------------------------------------------------
+
+FIGURES_REF = ROOT / "experiments" / "torch" / "figures_paper_ref.json"
+# (a), (b): Fig. 3's lru + tree at x1.0, x1.1 and x1.5 and UVMSmart at x1.5
+# on these (the short benchmarks of FEATURED; x1.25 and UVMSmart at x1.25:
+# phase 8's cells of all 11), chosen by scripts/rehearse_figures_cpu.py's
+# events per cell
+FIG3_BENCH = ("ATAX", "BICG", "NW")
+FIG3_OVERSUBS = (1.0, 1.1, 1.5)
+# (c), (d): the fine-tuned ours at x1.5 (Fig. 14) and without the
+# thrashing term (Fig. 12), Fig. 4's offline and online_single and Fig. 11's
+# chain up to its link, all on this benchmark (FEATURED's first, so the
+# chain's first link, and its shortest but one)
+FIG_TUNED = "ATAX"
+# the IPC of an integer cell: the same float64 operations as the JAX
+# package's timing.ipc on equal counters
+IPC_RTOL = 1e-12
+
+
+def figures_path(dev, ctx, tuned) -> dict:
+    """Phase 10: a subset of the paper's Figs. 3, 4, 11, 12, 13 and 14
+    through the port's figure runner (``repro_torch.bench.figures``) at the
+    paper preset against the JAX package's cells and rows
+    (``experiments/torch/figures_paper_ref.json``), reading phase 8's
+    memoised cells (``ctx`` frozen, ``tuned`` fine-tuned).  Returns the
+    launches of all its columns together."""
+    from repro_torch import kernels
+    from repro_torch.bench import figures as FG
+    from repro_torch.bench import tables as TB
+    from repro_torch.uvm import simulator as S
+    from repro_torch.uvm.manager import OversubscriptionManager
+
+    ref = json.loads(FIGURES_REF.read_text())
+    check((ref["preset"], ref["scale"], ref["cap"]) == ("paper", *TB.SCALE_PRESETS["paper"])
+          and ref["featured"] == TB.FEATURED and ref["benchmarks"] == ctx.benches
+          and ref["train"] == dataclasses.asdict(tuned.tcfg), "the reference file is not the runner's paper preset")
+    cells = ref["cells"]
+    walked, gates = [0], [0]
+    scan, observe = S._scan_events, OversubscriptionManager.observe
+
+    def counting(state, ev, *a):
+        walked[0] += len(ev.blk)
+        return scan(state, ev, *a)
+
+    def gate_counting(self, batch):
+        a = observe(self, batch)
+        gates[0] += a.counters is not None
+        return a
+
+    columns, got = {}, {}
+
+    def column(name, items):
+        _sync(dev)
+        kernels.reset_launches()
+        walked[0] = gates[0] = 0
+        t0 = time.perf_counter()
+        for key, fn in items:
+            got[key] = fn()
+        _sync(dev)
+        columns[name] = {"host_s": time.perf_counter() - t0, "events": walked[0], "gates_open": gates[0],
+                         "runs": len(items), "launches": dict(kernels.LAUNCHES)}
+
+    S._scan_events, OversubscriptionManager.observe = counting, gate_counting
+    try:
+        column("fig3 lru+tree", [(f"sim|{b}|lru+tree|{os_}", lambda b=b, os_=os_: ctx.sim(b, "lru", "tree", os_))
+                                 for os_ in FIG3_OVERSUBS for b in FIG3_BENCH])
+        column("uvmsmart x1.5", [(f"uvmsmart|{b}|1.5", lambda b=b: ctx.uvmsmart(b, 1.5)) for b in FIG3_BENCH])
+        column("ours x1.5", [(f"ours|{FIG_TUNED}|1.5|thrash=True", lambda: tuned.ours(FIG_TUNED, 1.5))])
+        column("ours, no thrashing term", [(f"ours|{FIG_TUNED}|1.25|thrash=False",
+                                            lambda: tuned.ours(FIG_TUNED, use_thrash_term=False))])
+        link = TB.FEATURED.index(FIG_TUNED)  # Fig. 11's chain up to FIG_TUNED's link
+        column("protocols", [
+            (f"protocol|{FIG_TUNED}|offline", lambda: tuned.protocol(FIG_TUNED, "offline")),
+            (f"protocol|{FIG_TUNED}|online_single", lambda: tuned.protocol(FIG_TUNED, "online_single")),
+            (f"protocol|{FIG_TUNED}|ours|chain_seed0=123|link{link}",
+             lambda: tuned.protocol_chain(TB.FEATURED[:link + 1], "ours", table=tuned.pretrained("fig11"))[-1])])
+    finally:
+        S._scan_events, OversubscriptionManager.observe = scan, observe
+    print("  columns: " + json.dumps({k: {f: v[f] for f in ("host_s", "events", "gates_open", "runs")}
+                                       for k, v in columns.items()}))
+    # (a) Fig. 3's cells and rows on the subset
+    bad = [(k, got[k], cells[k]["stats"]) for k in got if k.startswith(("sim|", "uvmsmart|"))
+           and got[k] != cells[k]["stats"]]
+    check(not bad, f"Fig. 3's or UVMSmart's cells differ from the JAX package's: {bad}")
+    rows = FG.fig3(ctx.with_train(ctx.tcfg, benches=list(FIG3_BENCH)))
+    want_rows = {r["benchmark"]: r for r in ref["figures_rows"]["fig3"]}
+    check(rows == [want_rows[b] for b in FIG3_BENCH], f"Fig. 3's rows differ from the JAX package's: {rows}")
+    # (b) the IPC of every integer cell Figs. 3, 13 and 14 read from phases 8 and 10
+    ipcs = {f"sim|{b}|lru+tree|1.25": ctx.sim(b, "lru", "tree") for b in ctx.benches}
+    ipcs.update({f"uvmsmart|{b}|1.25": ctx.uvmsmart(b) for b in TB.FEATURED})
+    ipcs.update({k: v for k, v in got.items() if k.startswith(("sim|", "uvmsmart|"))})
+    worst = 0.0
+    for k, st in ipcs.items():
+        check(st == cells[k]["stats"], f"{k}: the counters differ from the JAX package's")
+        want = cells[k]["ipc"]
+        worst = max(worst, abs(ctx.ipc(k.split("|")[1], st) - want) / want)
+    check(worst <= IPC_RTOL, f"an IPC differs from the JAX package's by rtol {worst} > {IPC_RTOL}")
+    print(f"  (a), (b) Fig. 3's lru+tree at x{', x'.join(map(str, FIG3_OVERSUBS))} and UVMSmart at x1.5 on "
+          f"{len(FIG3_BENCH)} benchmarks: counters and rows equal; {len(ipcs)} integer cells' IPC within rtol "
+          f"{worst:.3g} of the JAX package's float64 ({IPC_RTOL})")
+    # (c) the fine-tuned ours at x1.5 and without the thrashing term; (d) the protocols
+    dist = {k: run_distance(got[k], cells[k]) for k in got if k.startswith("ours|")}
+    dist.update({k: protocol_distance(got[k], cells[k]) for k in got if k.startswith("protocol|")})
+    print("  (c), (d) " + json.dumps(dist))
+    for k, d in dist.items():
+        check_tuned(k, d)
+    for k in dist:
+        if k.startswith("ours|") and got[k].stats == cells[k]["stats"]:
+            for us, want in cells[k]["ipc"].items():
+                check(abs(got[k].ipc(pred_overhead_us=float(us)) - want) <= IPC_RTOL * want,
+                      f"{k}: the IPC at {us} us differs from the JAX package's on equal counters")
+    print(f"  (c), (d): {sum(d['equal'] for d in dist.values())} of {len(dist)} runs equal to the JAX package's, "
+          f"the rest within phase 7 (b)'s limits")
+    # (e) launches per column
+    print("  launches: " + json.dumps({k: {n: c for n, c in v["launches"].items() if c} for k, v in columns.items()}))
+    figure_launch_checks(columns)
+    return {k: sum(c["launches"][k] for c in columns.values()) for k in next(iter(columns.values()))["launches"]}
+
+
+def figure_launch_checks(columns: dict) -> None:
+    """Every simulator column launched ``evict_select``, every column that
+    trains the attention forward and backward and both ``thrash_ce``
+    kernels, every column whose prefetch gate opened ``freq_update``."""
+    training = ("flash_attention", "flash_attention_bwd", "thrash_ce_fwd", "thrash_ce_bwd")
+    for name, col in columns.items():
+        need = {"fig3 lru+tree": ("evict_select",), "uvmsmart x1.5": ("evict_select",),
+                "protocols": training}.get(name, ("evict_select",) + training)
+        if col["gates_open"]:
+            need += ("freq_update",)
+        for k in need:
+            check(col["launches"][k] > 0, f"the {name} column never launched {k}")
 
 
 def main() -> int:
@@ -2311,13 +2469,13 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
         smi = nvidia_smi_line()
-        print(f"[1/9] device: {name} (count {count}); nvidia-smi: {smi}")
+        print(f"[1/10] device: {name} (count {count}); nvidia-smi: {smi}")
         print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
         t0 = time.perf_counter()
         LIBRARY.cdll()
         how = "built" if LIBRARY.build_seconds is not None else "loaded the existing build"
-        print(f"[2/9] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
+        print(f"[2/10] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
         for line in LIBRARY.ptxas_log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line or line.startswith("=="):
                 print("      " + line.strip())
@@ -2331,7 +2489,7 @@ def main() -> int:
             time_training(dev, args.time_training)
             return 0
 
-        print(f"[3/9] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
+        print(f"[3/10] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
         rows = [kernel_evict_select(dev), *kernel_freq_table(dev), kernel_flash_attention(dev),
                 kernel_flash_attention_bf16(dev), kernel_flash_attention_bwd(dev), kernel_decode_attention(dev),
                 kernel_ssd_scan(dev), *kernel_thrash_ce(dev)]
@@ -2350,16 +2508,16 @@ def main() -> int:
               f"step {tf['step_device_ops_per_call']}")
 
         by_path = {}
-        print(f"[4/9] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
+        print(f"[4/10] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         _, by_path["run_ours"] = main_path(dev)
-        print(f"[5/9] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
+        print(f"[5/10] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["serve"], qwen2_engine, qwen2_prompt = serve_path(dev)
-        print(f"[6/9] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
+        print(f"[6/10] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["serve_mamba2"] = serve_mamba2_path(dev)
-        print(f"[7/9] train: one train_group, the fine-tuned run_ours (Hotspot x1.5, CONFIG, TrainConfig()) and the "
+        print(f"[7/10] train: one train_group, the fine-tuned run_ours (Hotspot x1.5, CONFIG, TrainConfig()) and the "
               f"manager KV offload (qwen2-0.5b full width), on the card (at {time.perf_counter() - start:.0f} s)")
         by_path["train_group"] = train_group_check(dev)
         print(f"      (b) at {time.perf_counter() - start:.0f} s")
@@ -2367,14 +2525,19 @@ def main() -> int:
         print(f"      (c) at {time.perf_counter() - start:.0f} s")
         by_path["serve_manager"] = serve_manager_check(dev, qwen2_engine, qwen2_prompt)
         del qwen2_engine
-        print(f"[8/9] tables: the table runner at the paper preset, x1.25, 11 benchmarks (five simulator cells, "
+        print(f"[8/10] tables: the table runner at the paper preset, x1.25, 11 benchmarks (five simulator cells, "
               f"UVMSmart, frozen ours; fine-tuned ours on {len(TABLES_TUNED)}), on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
-        by_path["table6"] = tables_path(dev)
-        print(f"[9/9] concurrent: Tables VII and VIII's cells, four pairs at the paper preset, x1.25 (frozen mux and "
+        by_path["table6"], tables_ctx, tables_tuned = tables_path(dev)
+        print(f"[9/10] concurrent: Tables VII and VIII's cells, four pairs at the paper preset, x1.25 (frozen mux and "
               f"merged on all four; fine-tuned and Table VII on {', '.join(CONCURRENT_TUNED)}), on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["concurrent"] = concurrent_path(dev)
+        t10 = time.perf_counter()
+        print(f"[10/10] figures: Figs. 3, 12, 13 and 14's cells on {', '.join(FIG3_BENCH)} and Figs. 4 and 11's "
+              f"protocols on {FIG_TUNED} at the paper preset, on the card (at {t10 - start:.0f} s)")
+        by_path["figures"] = figures_path(dev, tables_ctx, tables_tuned)
+        print(f"      phase 10 took {time.perf_counter() - t10:.1f} s")
         for r in rows:
             r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}
             r["launches"] = sum(r["launches_by_path"].values())

@@ -6,11 +6,18 @@ none, so this script carries both across as plain files:
 
 * ``experiments/torch/pretrain_paper.npz`` — the Section V-A pretrained
   model table of ``Session.paper()`` (``CONFIG``, 632,066 parameters per
-  slot): every slot's params as float32 under ``slot<s>/<param key>``, plus
+  slot): every slot's params as float32 under ``slot<s>/<param key>``, its
+  AdamW moments under ``slot<s>/opt/m/<param key>`` and
+  ``slot<s>/opt/v/<param key>`` (float32), its LUCIR snapshot under
+  ``slot<s>/prev/<param key>`` where set (pretraining sets none), plus
   ``slot<s>/step``, ``slot<s>/n_updates``, ``slot<s>/last_acc`` and
-  ``n_slots``.  Optimizer moments are left out: a frozen run re-initialises
-  them to zeros, exactly as ``Trainer.train_group`` does when they are
-  missing.
+  ``n_slots``.  Writing it asserts that the params equal the file's already
+  there (if any) bit for bit, that the file read back equals the in-memory
+  table (params, moments, counters), and that one fine-tune group of its
+  most trained slot from the file's table equals one from the in-memory
+  table, bit for bit.  Its float32 arrays are stored as byte planes in an
+  LZMA zip (``_savez_planes``, as is ``init_paper_slots.npz``); read them
+  with ``repro_torch.convert.blob_from_npz``.
 * ``experiments/torch/hotspot_paper_ref.json`` — the JAX package's frozen
   ``run_ours`` (``TrainConfig(2048, 0, 256)``, so no weight ever changes)
   on Hotspot at scale 1.0 and 150% oversubscription from that table: the
@@ -21,6 +28,7 @@ none, so this script carries both across as plain files:
 
 Pretraining takes about a minute on a CPU.  ``--cache-dir`` memoises it in
 DIR (default: no memo, nothing is written outside ``experiments/torch``).
+``--pretrained`` writes ``pretrain_paper.npz`` only (about 75 seconds).
 
     PYTHONPATH=src python scripts/export_torch_reference.py --serve
 
@@ -64,19 +72,17 @@ it, for a tight comparison.  It takes about 9 minutes and 4 GB on a CPU.
 writes ``experiments/torch/train_hotspot_ref.npz`` instead: the JAX
 package's fine-tuned ``run_ours`` (``TrainConfig()``: groups of 2,048,
 3 epochs of batches of 256, lr 3e-3; ``CONFIG``) on Hotspot at scale 1.0
-and 150% oversubscription, started from ``pretrain_paper.npz``'s table with
-every slot's optimizer moments unset (``opt_state=None``; each slot keeps
-its ``step``), because the npz carries no moments and the port's table
-from it has none: its stats, top-1, prediction count, per-group accuracy,
-gates and patterns.  Beside it, the run's third fine-tune call (the
-first on slot 3, whose entry is then the npz slot itself with fresh
-moments and ``prev_params`` equal to its params, and whose group has 1,824
-of 2,048 samples flagged E∪T): the group's features, flags and
+and 150% oversubscription, started from ``pretrain_paper.npz``'s table,
+every slot with its AdamW moments: its stats, top-1, prediction count,
+per-group accuracy, gates and patterns.  Beside it, the run's third
+fine-tune call (the first on slot 3, whose entry is then the npz slot
+itself, params and moments, with ``prev_params`` equal to its params, and
+whose group has 1,824 of 2,048 samples flagged E∪T): the group's features, flags and
 ``n_active``, each of its 24 steps' loss and gradient global norm (before
 clipping), taken step by step with the package's own jitted
 ``train_step`` (equal to the scanned ``train_group`` to the last bit,
 checked), and the final params (632,066 float32).  It takes about 2.5
-minutes on a CPU and writes 2.4 MB.
+minutes on a CPU (4 with other exports beside it) and writes 2.4 MB.
 
     PYTHONPATH=src python scripts/export_torch_reference.py --serve-manager
 
@@ -99,13 +105,14 @@ oversubscription, for each of the 11 benchmarks: ``run_batch``'s stats of
 the five standard cells (``lru``/``hpe`` x ``tree``/``demand``,
 ``belady`` + ``demand``), ``run_uvmsmart``'s stats, the frozen ``run_ours``
 (``TrainConfig(2048, 0, 256)``) and the fine-tuned one (``TrainConfig()``,
-the paper's schedule) from ``pretrain_paper.npz``'s table with every slot's
-optimizer moments unset (as the port loads it), each with its stats, top-1,
+the paper's schedule) from ``pretrain_paper.npz``'s table (moments and
+all, as ``Session.paper()`` holds it), each with its stats, top-1,
 prediction count and per-group accuracies, and the host seconds of each.
 Beside them, the rows that ``benchmarks/tables.py``'s ``table1``-``table4``
 and ``table6`` build from those cells (``table6`` once with each ``ours``).
-It takes about 30 minutes on a CPU, most of it the fine-tuned runs; the
-JAX compile cache goes to a temporary directory.
+It takes about 4 minutes on a CPU alone (7.5 beside other exports), most
+of it the fine-tuned runs; the JAX compile cache goes to a temporary
+directory.
 
     PYTHONPATH=src python scripts/export_torch_reference.py --concurrent
 
@@ -119,18 +126,39 @@ oversubscription.  For each of the four pairs: the merge's length and the
 SHA-256 of its page, pc, tb, kernel and tenant arrays (int32, in that
 order); the frozen (``TrainConfig(2048, 0, 256)``) and fine-tuned
 (``TrainConfig()``) ``run_ours`` under ``mux`` and ``merged`` from
-``pretrain_paper.npz``'s table with the moments unset (as the port loads
-it), each with its stats, top-1, prediction count, per-tenant top-1 and
+``pretrain_paper.npz``'s table (moments and all), each with its stats, top-1, prediction count, per-tenant top-1 and
 stats, per-group accuracies, the table's misses and the slots it created;
 and Table VII's ``online_single`` (fresh weights) and ``ours`` protocol
 runs at ``TrainConfig()``, ``ours`` from Table VII's own Section V-A table
 (``PretrainSpec(scale=0.6, seed0=321)`` at ``CONFIG``, two rounds, written
-to ``pretrain_paper_s321.npz`` as ``pretrain_paper.npz`` is, and loaded
-back the same way).  Beside them, the rows ``table7`` and ``table8`` (once
+to ``pretrain_paper_s321.npz`` as ``pretrain_paper.npz`` is, with the same
+checks, and loaded back the same way).  Beside them, the rows ``table7`` and ``table8`` (once
 frozen, once fine-tuned) build from those runs.  ``init_paper_slots.npz``
-holds ``Trainer.new_params(s)`` (float32) for exactly the slots those runs
-created, which the port, whose fresh slots draw from ``torch.Generator``,
-starts from when asked (``fresh=``).
+holds ``Trainer.new_params(s)`` (float32) for the slots those runs
+created, and for those it held already, which the port, whose fresh slots
+draw from ``torch.Generator``, starts from when asked (``fresh=``).
+
+    PYTHONPATH=src python scripts/export_torch_reference.py --figures
+
+writes ``experiments/torch/figures_paper_ref.json`` and
+``pretrain_paper_s123.npz`` instead, and adds to ``init_paper_slots.npz``
+the slots the figure runs draw fresh weights for (a table's miss, or the
+``offline`` protocol's one model, ``Trainer.new_params(tcfg.seed)``): the
+reference's ``benchmarks/figures.py`` ``fig3``, ``fig4``, ``fig6``,
+``fig11``, ``fig12``, ``fig13`` and ``fig14``, called unchanged on a
+``Session.paper(store=RunStore(enabled=False))`` whose default pretrained
+table is asserted equal to ``pretrain_paper.npz``'s and whose Fig. 11 table
+(``PretrainSpec(scale=0.6, seed0=123)``) is written to
+``pretrain_paper_s123.npz`` as ``pretrain_paper.npz`` is.  It records the
+figures' rows and seconds, and every cell they read, under readable keys:
+each simulator cell's and UVMSmart run's stats and unrounded IPC
+(``sim|<benchmark>|<policy>+<prefetch>|<oversubscription>``,
+``uvmsmart|<benchmark>|<oversubscription>``), each ``ours``'s stats,
+top-1, prediction count, per-group accuracy and IPC at every prediction
+overhead (``ours|<benchmark>|<oversubscription>|thrash=<bool>``), each
+protocol run's top-1, per-group accuracy and counts
+(``protocol|<benchmark>|<mode>``, a chain's links
+``...|chain_seed0=123|link<i>``).  It takes tens of minutes on a CPU.
 """
 from __future__ import annotations
 
@@ -377,20 +405,98 @@ TRAIN = {"benchmark": "Hotspot", "scale": 1.0, "oversubscription": 1.5, "group_c
 
 
 def _npz_table(trainer, path: Path = OUT / "pretrain_paper.npz"):
-    """The JAX model table of ``pretrain_paper.npz`` (or ``path``) with every
-    slot's optimizer moments unset (``opt_state=None``), each keeping its
-    ``step``."""
+    """The JAX model table of ``pretrain_paper.npz`` (or ``path``): every
+    slot's params, AdamW moments, LUCIR snapshot where set, ``step``,
+    ``n_updates`` and ``last_acc``, as the file stores them."""
     import jax.numpy as jnp
 
     from repro.core.model_table import Entry, ModelTable
+    from repro.optim.adamw import OptState
     from repro_torch import convert
 
+    as_jax = lambda tree: None if tree is None else {k: jnp.asarray(v) for k, v in tree.items()}
     blob = convert.blob_from_npz(path)
     table = ModelTable(lambda s: trainer.new_params(s), n_slots=blob["n_slots"])
     for s, e in blob["slots"].items():
-        table.slots[s] = Entry(params={k: jnp.asarray(v) for k, v in e["params"].items()}, step=e["step"],
-                               n_updates=e["n_updates"], last_acc=e["last_acc"])
+        opt = e["opt_state"]
+        table.slots[s] = Entry(params=as_jax(e["params"]), prev_params=as_jax(e["prev_params"]),
+                               opt_state=None if opt is None else OptState(m=as_jax(opt.m), v=as_jax(opt.v)),
+                               step=e["step"], n_updates=e["n_updates"], last_acc=e["last_acc"])
     return table, blob
+
+
+def _trees_equal(a, b) -> bool:
+    """Two flat dicts of arrays (or two ``OptState``s of them, or two
+    ``None``) equal key for key, bit for bit."""
+    import numpy as np
+
+    if a is None or b is None:
+        return a is None and b is None
+    if not isinstance(a, dict):
+        return all(_trees_equal(x, y) for x, y in zip(a, b))
+    return sorted(a) == sorted(b) and all(
+        np.asarray(a[k]).dtype == np.asarray(b[k]).dtype and np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+        for k in a)
+
+
+def _tables_equal(a, b) -> bool:
+    """Two JAX model tables with the same slots, each slot's params, moments,
+    snapshot and counters bit for bit."""
+    return sorted(a.slots) == sorted(b.slots) and all(
+        _trees_equal(x.params, y.params) and _trees_equal(x.opt_state, y.opt_state)
+        and _trees_equal(x.prev_params, y.prev_params)
+        and (x.step, x.n_updates, x.last_acc) == (y.step, y.n_updates, y.last_acc)
+        for x, y in ((a.slots[s], b.slots[s]) for s in a.slots))
+
+
+def _one_group(trainer, table, slot: int) -> tuple:
+    """One JAX fine-tune group (``run_protocol``'s ``ours`` step: snapshot,
+    then ``train_group`` with LUCIR) of ``slot`` of a clone of ``table`` on
+    Hotspot's first 2,048 accesses at scale 1.0: the params and moments
+    after it."""
+    from repro.core.features import DeltaVocab, FeatureStream
+    from repro.uvm import trace as T
+
+    pcfg = trainer.pcfg
+    vocab = DeltaVocab(pcfg.delta_vocab)
+    stream = FeatureStream(T.get_trace("Hotspot", 1.0), vocab, pcfg.history, page_vocab=pcfg.page_vocab,
+                           pc_vocab=pcfg.pc_vocab, tb_vocab=pcfg.tb_vocab)
+    fs = stream.windows(0, GROUP)
+    t = table.clone()
+    t.slots[slot].prev_params = t.slots[slot].params
+    e = trainer.train_group(t.slots[slot], fs, max(vocab.n_classes, 2), use_lucir=True)
+    return e.params, e.opt_state
+
+
+def _export_table(table, path: Path, trainer) -> dict:
+    """Write ``table`` (the JAX package's in-memory pretrained table) to
+    ``path`` as ``_write_table_npz`` stores it, after asserting that its
+    params equal those of the file already there, if any, bit for bit; read
+    it back and assert that every slot's params, moments and snapshot equal
+    the in-memory table's and that one fine-tune group of its most trained
+    slot from the file's table equals one from the in-memory table, bit for
+    bit.  Returns what was checked."""
+    import numpy as np
+
+    from repro_torch import convert
+
+    kept = None
+    if path.exists():
+        old = convert.blob_from_npz(path)
+        kept = sorted(old["slots"]) == sorted(table.slots) and all(
+            _trees_equal(old["slots"][s]["params"], {k: np.asarray(v) for k, v in e.params.items()})
+            for s, e in table.slots.items())
+        assert kept, f"{path.name}: the pretrained params differ from the committed file's"
+    _write_table_npz(table, path)
+    back, _ = _npz_table(trainer, path)
+    assert _tables_equal(back, table), f"{path.name}: the table read back differs from the in-memory one"
+    assert all(e.opt_state is not None for e in back.slots.values()), f"{path.name}: a slot has no moments"
+    slot = max(table.slots, key=lambda s: table.slots[s].step)
+    got, want = _one_group(trainer, back, slot), _one_group(trainer, table, slot)
+    assert _trees_equal(got[0], want[0]) and _trees_equal(got[1], want[1]), \
+        f"{path.name}: a fine-tune group from the file's table differs from one from the in-memory table"
+    return {"file": path.name, "slots": sorted(table.slots), "params_as_committed": kept,
+            "group_equal_slot": slot, "bytes": path.stat().st_size}
 
 
 def _train_steps(trainer, entry, fs, n_active: int, in_et, use_lucir: bool, rng) -> tuple[dict, list, list]:
@@ -457,7 +563,8 @@ def export_train() -> None:
         if len(calls) == TRAIN["group_call"]:  # the entry before it trains, and its inputs
             slot = next(s for s, e in table.slots.items() if e is entry)
             same = lambda a, b: all(np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in b)
-            call = {"slot": slot, "step": entry.step, "fresh_moments": entry.opt_state is None,
+            call = {"slot": slot, "step": entry.step,
+                    "npz_moments": _trees_equal(entry.opt_state, blob["slots"][slot]["opt_state"]),
                     "params_are_npz": same(entry.params, blob["slots"][slot]["params"]),
                     "prev_is_params": entry.prev_params is not None and same(entry.prev_params, entry.params),
                     "fs": fs, "n_active": int(n_active), "use_lucir": use_lucir,
@@ -472,18 +579,22 @@ def export_train() -> None:
         Trainer.train_group = train_group
     run_s = time.perf_counter() - t0
     g = calls[TRAIN["group_call"]]
-    assert g["params_are_npz"] and g["prev_is_params"] and g["fresh_moments"] and g["in_et"] is not None, \
-        "the recorded group does not start from the npz slot's params with fresh moments"
+    assert g["params_are_npz"] and g["prev_is_params"] and g["npz_moments"] and g["in_et"] is not None, \
+        "the recorded group does not start from the npz slot's params and moments"
     # the recorded group again, step by step, from the npz slot (prev_params = params, as snapshot_prev leaves it)
     from repro.core.model_table import Entry
+    from repro.optim.adamw import OptState
 
     import jax.numpy as jnp
-    start = {k: jnp.asarray(v) for k, v in blob["slots"][g["slot"]]["params"].items()}
-    entry = Entry(params=start, prev_params=start, step=g["step"])
+    as_jax = lambda tree: {k: jnp.asarray(v) for k, v in tree.items()}
+    start = as_jax(blob["slots"][g["slot"]]["params"])
+    moments = blob["slots"][g["slot"]]["opt_state"]
+    opt = lambda: OptState(m=as_jax(moments.m), v=as_jax(moments.v))
+    entry = Entry(params=start, prev_params=start, opt_state=opt(), step=g["step"])
     final, step_loss, step_gnorm = _train_steps(trainer, entry, g["fs"], g["n_active"], g["in_et"], g["use_lucir"],
                                                 np.random.default_rng(tcfg.seed))
-    scanned = trainer.train_group(Entry(params=start, prev_params=start, step=g["step"]), g["fs"], g["n_active"],
-                                  in_et=g["in_et"], use_lucir=g["use_lucir"])
+    scanned = trainer.train_group(Entry(params=start, prev_params=start, opt_state=opt(), step=g["step"]), g["fs"],
+                                  g["n_active"], in_et=g["in_et"], use_lucir=g["use_lucir"])
     scan_gap = max(float(np.abs(np.asarray(scanned.params[k]) - v).max()) for k, v in final.items())
     fs = g["fs"]
     meta = {**TRAIN, "slot": g["slot"], "step": g["step"], "n_active": g["n_active"], "use_lucir": g["use_lucir"],
@@ -651,18 +762,69 @@ def _export_tables(tmp: Path) -> None:
     print(json.dumps({"seconds": ref["seconds"], "table6": rows["table6"][0], "table6_frozen": rows["table6_frozen"][0]}))
 
 
-def _write_table_npz(table, path: Path) -> None:
-    """A model table's params as ``pretrain_paper.npz`` stores them."""
+def _savez_planes(path: Path, arrays: dict) -> None:
+    """``arrays`` as one ``.npz`` (a zip of ``.npy`` members, LZMA-compressed),
+    each float32 array of rank >= 1 as its four byte planes: a uint8 array of
+    shape ``(4, *shape)``, least significant byte first, which compresses
+    about a tenth better than the float32 bytes.  ``convert.blob_from_npz``
+    reads them back bit for bit."""
+    import zipfile
+
     import numpy as np
+
+    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_LZMA) as zf:
+        for key, a in arrays.items():
+            a = np.asarray(a)
+            if a.dtype == np.float32 and a.ndim:
+                a = np.ascontiguousarray(np.moveaxis(a.astype("<f4").view(np.uint8).reshape(*a.shape, 4), -1, 0))
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, a)
+
+
+def _write_table_npz(table, path: Path) -> None:
+    """A model table as ``pretrain_paper.npz`` stores it: every slot's
+    params under ``slot<s>/<param key>``, its AdamW moments under
+    ``slot<s>/opt/m/<param key>`` and ``slot<s>/opt/v/<param key>`` and its
+    LUCIR snapshot under ``slot<s>/prev/<param key>`` where set (float32),
+    ``slot<s>/{step,n_updates,last_acc}`` and ``n_slots``; one compressed
+    file (``_savez_planes``)."""
+    import numpy as np
+
+    def put(prefix, tree):
+        for k, v in tree.items():
+            a = np.asarray(v)
+            assert a.dtype == np.float32, (prefix, k, a.dtype)
+            arrays[prefix + k] = a
 
     arrays = {"n_slots": np.int64(table.n_slots)}
     for s, e in sorted(table.slots.items()):
-        for k, v in e.params.items():
-            arrays[f"slot{s}/{k}"] = np.asarray(v, np.float32)
+        put(f"slot{s}/", e.params)
+        if e.opt_state is not None:
+            put(f"slot{s}/opt/m/", e.opt_state.m)
+            put(f"slot{s}/opt/v/", e.opt_state.v)
+        if e.prev_params is not None:
+            put(f"slot{s}/prev/", e.prev_params)
         arrays[f"slot{s}/step"] = np.int64(e.step)
         arrays[f"slot{s}/n_updates"] = np.int64(e.n_updates)
         arrays[f"slot{s}/last_acc"] = np.float64(e.last_acc)
-    np.savez_compressed(path, **arrays)
+    _savez_planes(path, arrays)
+
+
+def _write_init_slots(trainer, created) -> list:
+    """Write ``Trainer.new_params(s)`` (float32) to ``init_paper_slots.npz``
+    (``_savez_planes``) for every slot in ``created`` and every slot the file
+    already holds, one array set per slot; returns the slots."""
+    import numpy as np
+
+    from repro_torch import convert
+
+    path = OUT / "init_paper_slots.npz"
+    slots = sorted(set(created) | (set(convert.fresh_slots(path)) if path.exists() else set()))
+    arrays = {"n_slots": np.int64(trainer.tcfg.table_slots)}
+    arrays.update({f"slot{s}/{k}": np.asarray(v, np.float32) for s in slots
+                   for k, v in trainer.new_params(s).items()})
+    _savez_planes(path, arrays)
+    return slots
 
 
 CONCURRENT = {"preset": "paper", "scale": 1.0, "cap": 60_000, "oversubscription": 1.25, "slice_len": GROUP,
@@ -752,7 +914,7 @@ def _export_concurrent(tmp: Path) -> None:
     t0 = time.perf_counter()
     pspec = dataclasses.replace(Session.paper().default_pretrain, seed0=c["table7_pretrain"]["seed0"])
     assert (pspec.scale, pspec.max_rounds) == (c["table7_pretrain"]["scale"], c["table7_pretrain"]["max_rounds"])
-    _write_table_npz(Session.paper().pretrained(pspec), OUT / "pretrain_paper_s321.npz")
+    print(json.dumps(_export_table(Session.paper().pretrained(pspec), OUT / "pretrain_paper_s321.npz", trainer)))
     t7, _ = _npz_table(trainer, OUT / "pretrain_paper_s321.npz")
     pretrain_s = time.perf_counter() - t0
     created: set = set()
@@ -812,10 +974,7 @@ def _export_concurrent(tmp: Path) -> None:
                                                    {k: v["fine_tuned"] for k, v in ours.items()}, protocols)),
             "table8_frozen": BT.table8(_ConcurrentContext(frozen_cfg, merges,
                                                           {k: v["frozen"] for k, v in ours.items()}, protocols))}
-    init = {s: trainer.new_params(s) for s in sorted(created)}
-    arrays = {"n_slots": np.int64(tuned_cfg.table_slots)}
-    arrays.update({f"slot{s}/{k}": np.asarray(v, np.float32) for s, p in init.items() for k, v in p.items()})
-    np.savez_compressed(OUT / "init_paper_slots.npz", **arrays)
+    _write_init_slots(trainer, created)
     ref = {**c, "train": {"frozen": dataclasses.asdict(frozen_cfg), "fine_tuned": dataclasses.asdict(tuned_cfg)},
            "base_slots": sorted(base_slots), "table7_slots": sorted(t7.slots), "init_slots": sorted(created),
            "pairs_ref": out, "tables": rows, "pretrain_seconds": pretrain_s,
@@ -825,9 +984,132 @@ def _export_concurrent(tmp: Path) -> None:
                       "table8": rows["table8"][0], "table8_frozen": rows["table8_frozen"][0]}))
 
 
+FIGURES = {"preset": "paper", "scale": 1.0, "cap": 60_000,
+           "figures": ["fig3", "fig4", "fig6", "fig11", "fig12", "fig13", "fig14"],
+           "fig11_pretrain": {"scale": 0.6, "seed0": 123, "max_rounds": 2}, "overheads_us": [1, 10, 20, 50, 100]}
+
+
+def _recording_session(Session):
+    """A ``Session`` subclass that records, under readable keys, every cell
+    the reference's figures read of it: each simulator cell's and UVMSmart
+    run's stats and IPC; each ``ours``'s stats, top-1, prediction count,
+    per-group accuracy and IPC at every prediction overhead; each protocol
+    run's top-1, per-group accuracy and counts (a chain's links by index)."""
+
+    class RecordingSession(Session):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.cells = {}
+
+        def sims(self, w, cells):
+            out = super().sims(w, cells)
+            for (p, f, os_), st in zip(cells, out):
+                self.cells[f"sim|{w}|{p}+{f}|{os_}"] = {"stats": st, "ipc": self.ipc(w, st)}
+            return out
+
+        def uvmsmart(self, w, oversub=1.25):
+            st = super().uvmsmart(w, oversub)
+            self.cells[f"uvmsmart|{w}|{oversub}"] = {"stats": st, "ipc": self.ipc(w, st)}
+            return st
+
+        def ours(self, w, oversub=1.25, seed=0, **kw):
+            res = super().ours(w, oversub, seed, **kw)
+            self.cells[f"ours|{w}|{oversub}|thrash={kw.get('use_thrash_term', True)}"] = {
+                "stats": res.stats, "top1": res.top1, "n_predictions": res.n_predictions,
+                "per_group_acc": res.per_group_acc, "n_accesses": res.n_accesses,
+                "ipc": {str(us): res.ipc(pred_overhead_us=us) for us in FIGURES["overheads_us"]}}
+            return res
+
+        def protocol_chain(self, workloads, mode, *, kind="transformer", pretrain=None):
+            out = super().protocol_chain(workloads, mode, kind=kind, pretrain=pretrain)
+            for i, (w, r) in enumerate(zip(workloads, out)):
+                key = f"protocol|{w}|{mode}" + ("" if pretrain is None else f"|chain_seed0={pretrain.seed0}|link{i}")
+                self.cells[key] = {"top1": r.top1, "per_group": list(r.per_group), "n_classes": r.n_classes,
+                                   "n_models": r.n_models, "n_samples": r.n_samples}
+            return out
+
+    return RecordingSession
+
+
+def export_figures() -> None:
+    """The JAX package's cells and rows of the paper's Figs. 3, 4, 6 and
+    11-14 at the paper preset (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="repro_figures_")
+    os.environ["REPRO_JAX_CACHE"] = tmp  # read when repro.uvm.api is imported
+    os.environ["REPRO_PRETRAIN_CACHE"] = "0"
+    try:
+        _export_figures(Path(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _export_figures(tmp: Path) -> None:
+    import dataclasses
+    import time
+
+    sys.path.insert(0, str(ROOT))  # the benchmarks package
+    import benchmarks.common as BC
+    import benchmarks.figures as BF
+    from repro.configs.predictor_paper import CONFIG
+    from repro.core.incremental import TrainConfig, Trainer
+    from repro.uvm.api.session import FEATURED, Session
+    from repro.uvm.api.store import RunStore
+
+    BC.OUT_DIR = tmp  # the figures' CSVs
+    t_start = time.perf_counter()
+    f = FIGURES
+    sess = _recording_session(Session).paper(store=RunStore(enabled=False))
+    assert (sess.scale, sess.cap) == (f["scale"], f["cap"])
+    trainer = Trainer(CONFIG, TrainConfig())
+    # the pretrained tables, before any figure runs: the default one equals
+    # pretrain_paper.npz's (params, moments and counters), Fig. 11's is
+    # written to pretrain_paper_s123.npz and read back the same way
+    t0 = time.perf_counter()
+    assert _tables_equal(sess.pretrained(), _npz_table(trainer)[0]), \
+        "Session.paper().pretrained() differs from pretrain_paper.npz"
+    pspec = dataclasses.replace(sess.default_pretrain, seed0=f["fig11_pretrain"]["seed0"])
+    assert (pspec.scale, pspec.max_rounds) == (f["fig11_pretrain"]["scale"], f["fig11_pretrain"]["max_rounds"])
+    exported = _export_table(sess.pretrained(pspec), OUT / "pretrain_paper_s123.npz", trainer)
+    print(json.dumps(exported), flush=True)
+    pretrain_s = time.perf_counter() - t0
+    # every slot a figure run draws fresh weights for (a table miss, or the
+    # offline protocol's own model): Trainer.new_params's calls
+    created: set = set()
+    new_params = Trainer.new_params
+
+    def recording(self, seed):
+        created.add(int(seed))
+        return new_params(self, seed)
+
+    rows, seconds = {}, {}
+    Trainer.new_params = recording
+    try:
+        for name in f["figures"]:
+            t0 = time.perf_counter()
+            rows[name] = getattr(BF, name)(sess)
+            seconds[name] = time.perf_counter() - t0
+            print(json.dumps({"figure": name, "seconds": seconds[name], "first_row": rows[name][0]}), flush=True)
+    finally:
+        Trainer.new_params = new_params
+    init_slots = _write_init_slots(trainer, created)
+    ref = {**f, "featured": list(FEATURED), "benchmarks": list(sess.benches), "train": dataclasses.asdict(TrainConfig()),
+           "fig11_table": exported, "created_slots": sorted(created), "init_slots": init_slots, "cells": sess.cells,
+           "figures_rows": rows, "figure_seconds": seconds, "pretrain_seconds": pretrain_s,
+           "seconds": time.perf_counter() - t_start}
+    (OUT / "figures_paper_ref.json").write_text(json.dumps(ref, indent=1) + "\n")
+    print(json.dumps({"seconds": ref["seconds"], "figure_seconds": seconds, "created_slots": ref["created_slots"],
+                      "init_slots": init_slots}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cache-dir", default=None, help="memoise the pretraining in this directory")
+    ap.add_argument("--pretrained", action="store_true", help="write pretrain_paper.npz (and nothing else)")
+    ap.add_argument("--figures", action="store_true", help="write figures_paper_ref.json, pretrain_paper_s123.npz "
+                    "and the figure runs' slots in init_paper_slots.npz (and nothing else)")
     ap.add_argument("--serve", action="store_true", help="write serve_qwen2_ref.npz (and nothing else)")
     ap.add_argument("--serve-mamba2", action="store_true", help="write serve_mamba2_ref.npz (and nothing else)")
     ap.add_argument("--train", action="store_true", help="write train_hotspot_ref.npz (and nothing else)")
@@ -836,6 +1118,9 @@ def main() -> None:
     ap.add_argument("--concurrent", action="store_true", help="write concurrent_paper_ref.json, "
                     "pretrain_paper_s321.npz and init_paper_slots.npz (and nothing else)")
     args = ap.parse_args()
+    if args.figures:
+        export_figures()
+        return
     if args.concurrent:
         export_concurrent()
         return
@@ -861,11 +1146,16 @@ def main() -> None:
     from repro.uvm import trace as T
     from repro.uvm.api.session import Session
 
+    from repro.configs.predictor_paper import CONFIG
+    from repro.core.incremental import TrainConfig, Trainer
+
     if args.cache_dir is not None:
         R.PRETRAIN_CACHE_DIR = Path(args.cache_dir)
     table = Session.paper().pretrained()
     OUT.mkdir(parents=True, exist_ok=True)
-    _write_table_npz(table, OUT / "pretrain_paper.npz")
+    print(json.dumps(_export_table(table, OUT / "pretrain_paper.npz", Trainer(CONFIG, TrainConfig()))))
+    if args.pretrained:
+        return
 
     trace = T.get_trace("Hotspot", 1.0)
     ref = {

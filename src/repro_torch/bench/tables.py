@@ -1,5 +1,7 @@
 """The paper's Tables I-IV and VI-VIII on the port (counterpart of
-``benchmarks/tables.py``'s ``table1``-``table4`` and ``table6``-``table8``).
+``benchmarks/tables.py``'s ``table1``-``table4`` and ``table6``-``table8``),
+and the :class:`Context` that the figures (``repro_torch.bench.figures``)
+share.
 
     PYTHONPATH=src python -m repro_torch.bench.tables --only table6 [--scale paper] \\
         [--frozen] [--table PATH] [--fresh PATH] [--device cpu]
@@ -22,17 +24,21 @@ and an in-process memo of traces and cells; it keeps no disk store.  ``ours`` is
 ``run_ours`` at the preset's predictor and schedule (``--frozen``: no
 fine-tuning), from a pretrained table: at the ``paper`` preset the one
 ``scripts/export_torch_reference.py`` exports from ``Session.paper()``
-(``experiments/torch/pretrain_paper.npz``, optimizer moments left out).
-The ``quick`` preset's table has no exported copy, so there ``ours`` needs
-``--table``.  Table VII's ``ours`` starts from its own Section V-A table
-(``PretrainSpec(scale=0.6, seed0=321)``: ``experiments/torch/
-pretrain_paper_s321.npz``), its ``online_single`` from fresh weights.
+(``experiments/torch/pretrain_paper.npz``: every slot's params and AdamW
+moments, so fine-tuning starts from the same optimizer state as the
+reference's runner).  The ``quick`` preset's table has no exported copy,
+so there ``ours`` needs ``--table``.  Table VII's ``ours`` starts from its
+own Section V-A table (``PretrainSpec(scale=0.6, seed0=321)``:
+``experiments/torch/pretrain_paper_s321.npz``), its ``online_single`` from
+fresh weights; Fig. 11's chain from ``seed0=123``'s
+(``experiments/torch/pretrain_paper_s123.npz``).
 
-A slot that a table lacks starts from the port's own initialisation
-(``torch.Generator``), which is not the JAX package's (``jax.random``):
-pass ``--fresh experiments/torch/init_paper_slots.npz``, the JAX package's
-initial weights of the slots its runs of Tables VII and VIII create, to
-start those slots as the JAX package does.
+A slot that a table lacks, and the ``offline`` protocol's one model, start
+from the port's own initialisation (``torch.Generator``), which is not the
+JAX package's (``jax.random``): pass ``--fresh
+experiments/torch/init_paper_slots.npz``, the JAX package's initial weights
+of the slots its runs of Tables VII and VIII and of the figures create, to
+start them as the JAX package does.
 """
 from __future__ import annotations
 
@@ -56,10 +62,13 @@ from repro_torch.core.predictor import param_count
 from repro_torch.device import resolve_device
 from repro_torch.uvm import runtime as R
 from repro_torch.uvm import simulator as S
+from repro_torch.uvm import timing
 from repro_torch.uvm import trace as T
 from repro_torch.uvm.uvmsmart import run_uvmsmart
 
 ALL_BENCH = list(T.BENCHMARKS)
+#: the paper's focus set (``repro.uvm.api.session.FEATURED``)
+FEATURED = ["ATAX", "BICG", "Hotspot", "NW", "Srad-v2"]
 #: (trace scale, cap on accesses), as ``repro.uvm.api.specs.SCALE_PRESETS``
 SCALE_PRESETS = {"quick": (0.4, 6000), "paper": (1.0, 60_000)}
 #: every rule-based cell the tables read
@@ -71,7 +80,10 @@ EXPERIMENTS = Path(__file__).resolve().parents[3] / "experiments" / "torch"
 PAPER_TABLE = EXPERIMENTS / "pretrain_paper.npz"
 #: Table VII's ``ours`` table: the paper preset's recipe with ``seed0=321``
 PAPER_TABLE_S321 = EXPERIMENTS / "pretrain_paper_s321.npz"
-#: the JAX package's initial weights of the fresh slots of Tables VII and VIII
+#: Fig. 11's chain table: the paper preset's recipe with ``seed0=123``
+PAPER_TABLE_S123 = EXPERIMENTS / "pretrain_paper_s123.npz"
+#: the JAX package's initial weights of the fresh slots of Tables VII and
+#: VIII and of the figures
 PAPER_FRESH = EXPERIMENTS / "init_paper_slots.npz"
 TABLES = ("table1", "table2", "table3", "table4", "table6", "table7", "table8")
 #: the Section V-F pairs of Tables VII and VIII
@@ -88,15 +100,17 @@ class Context:
     :class:`ModelTable` or the path of a memo pickle or ``.npz``); it
     defaults to ``PAPER_TABLE`` at the ``paper`` preset and to none at
     ``quick``, where ``ours`` then raises.  ``table7`` is Table VII's
-    (``PAPER_TABLE_S321`` at ``paper``).  ``fresh`` (a mapping slot ->
-    params, or an ``.npz`` of them) gives the initial weights of slots a
-    table lacks, and of ``protocol``'s fresh tables; ``None`` is the port's
-    own initialisation.  ``pcfg`` (the predictor) and ``tcfg`` (the
-    schedule) are the preset's."""
+    (``PAPER_TABLE_S321`` at ``paper``), ``fig11`` Fig. 11's
+    (``PAPER_TABLE_S123``).  ``fresh`` (a mapping slot -> params, or an
+    ``.npz`` of them) gives the initial weights of slots a table lacks, of
+    ``protocol``'s fresh tables and of the ``offline`` protocol's model
+    (slot ``tcfg.seed``); ``None`` is the port's own initialisation.
+    ``pcfg`` (the predictor) and ``tcfg`` (the schedule) are the preset's."""
 
     def __init__(self, preset: str = "paper", *, benches: list | None = None, frozen: bool = False,
                  table: ModelTable | str | Path | None = None, table7: ModelTable | str | Path | None = None,
-                 fresh: dict | str | Path | None = None, device: str | torch.device = "cuda"):
+                 fig11: ModelTable | str | Path | None = None, fresh: dict | str | Path | None = None,
+                 device: str | torch.device = "cuda"):
         self.preset = preset
         self.scale, self.cap = SCALE_PRESETS[preset]
         self.benches = list(benches) if benches is not None else list(ALL_BENCH)
@@ -107,7 +121,8 @@ class Context:
         train = TrainConfig(2048, 3, 256) if paper else TrainConfig(1024, 2, 128)
         self.tcfg = dataclasses.replace(train, epochs=0) if frozen else train
         self._tables = {"ours": PAPER_TABLE if table is None and paper else table,
-                        "table7": PAPER_TABLE_S321 if table7 is None and paper else table7}
+                        "table7": PAPER_TABLE_S321 if table7 is None and paper else table7,
+                        "fig11": PAPER_TABLE_S123 if fig11 is None and paper else fig11}
         self.fresh = convert.fresh_slots(fresh) if isinstance(fresh, (str, Path)) else fresh
         self._masters: dict = {}
         self._traces: dict = {}
@@ -115,6 +130,7 @@ class Context:
         self._sims: dict = {}
         self._smart: dict = {}
         self._ours: dict = {}
+        self._protocols: dict = {}
 
     def with_train(self, tcfg: TrainConfig, benches: list | None = None) -> "Context":
         """This context with another schedule for ``ours`` (and optionally
@@ -123,6 +139,7 @@ class Context:
         other.tcfg = tcfg
         other.benches = list(benches) if benches is not None else list(self.benches)
         other._ours = {}
+        other._protocols = {}
         return other
 
     def trace(self, name: str) -> T.Trace:
@@ -138,6 +155,11 @@ class Context:
         if key not in self._sims:
             self._sims[key] = S.run_batch(self.trace(name), [(policy, prefetch, oversub)], device=self.device)[0]
         return self._sims[key]
+
+    def ipc(self, w: str | T.Trace, stats: dict, **kw) -> float:
+        """The IPC proxy of a cell's stats over its trace's length (the
+        reference's ``Session.ipc``)."""
+        return timing.ipc(stats, len(self.trace(w) if isinstance(w, str) else w), **kw)
 
     def sims(self, name: str, oversub: float = 1.25) -> dict:
         """The ``STANDARD_CELLS`` row of one benchmark, by ``policy+prefetch``."""
@@ -160,14 +182,15 @@ class Context:
 
     def pretrained(self, which: str = "ours") -> ModelTable:
         """A fresh copy of a pretrained table (fine-tuning changes it):
-        ``ours``'s, or ``"table7"``'s."""
+        ``ours``'s, ``"table7"``'s or ``"fig11"``'s."""
         if which not in self._masters:
             src = self._tables[which]
             if src is None:
-                if which == "table7":
+                if which != "ours":
+                    name, seed0 = {"table7": ("Table VII", 321), "fig11": ("Fig. 11", 123)}[which]
                     raise NotImplementedError(
-                        f"the {self.preset!r} preset's Table VII table (the reference's pretrain with seed0=321) "
-                        "has no exported copy; pass table7=")
+                        f"the {self.preset!r} preset's {name} table (the reference's pretrain with seed0={seed0}) "
+                        f"has no exported copy; pass {which}=")
                 raise NotImplementedError(
                     f"the {self.preset!r} preset's pretrained table (the reference's Session().pretrained(): "
                     "pretrain_table over PretrainSpec(scale=0.24)'s corpus at CONFIG_QUICK and "
@@ -176,27 +199,47 @@ class Context:
                                     else R.load_pretrained(src, self.pcfg, self.device, fresh=self.fresh))
         return self._masters[which].clone()
 
-    def ours(self, w: str | T.Trace, oversub: float = 1.25, tenancy: str = "mux") -> R.LearnedRunResult:
+    def ours(self, w: str | T.Trace, oversub: float = 1.25, tenancy: str = "mux",
+             use_thrash_term: bool = True) -> R.LearnedRunResult:
         """The paper's learned runtime on a benchmark or a merge (Section
-        IV); ``tenancy`` picks a merge's treatment (``TENANCIES``)."""
+        IV); ``tenancy`` picks a merge's treatment (``TENANCIES``),
+        ``use_thrash_term=False`` drops Eq. 3's thrashing term (Fig. 12)."""
         if tenancy not in TENANCIES:
             raise ValueError(f"unknown tenancy {tenancy!r}; one of {TENANCIES}")
         tr = self.trace(w) if isinstance(w, str) else w
-        key = (tr.name, len(tr), oversub, tenancy)
+        key = (tr.name, len(tr), oversub, tenancy, use_thrash_term)
         if key not in self._ours:
             self._ours[key] = R.run_ours(tr, self.pcfg, self.tcfg, oversubscription=oversub, table=self.pretrained(),
+                                         use_thrash_term=use_thrash_term,
                                          multi_tenant=False if tenancy == "merged" else None,
                                          shared_freq_table=tenancy == "mux-shared", device=self.device)
         return self._ours[key]
 
     def protocol(self, w: str | T.Trace, mode: str, table: ModelTable | None = None) -> RunResult:
         """One prediction-accuracy protocol run (strictly causal top-1) at
-        the context's predictor and schedule, from ``table`` (used as given)
-        or from fresh weights."""
+        the context's predictor and schedule, from ``table`` (used as given,
+        and changed by the run) or from fresh weights; a run from fresh
+        weights is memoised."""
         tr = self.trace(w) if isinstance(w, str) else w
-        if table is None:
-            table = convert.fresh_table(self.pcfg, self.device, self.tcfg.table_slots, self.fresh)
-        return run_protocol(tr, self.pcfg, self.tcfg, mode=mode, table=table, device=self.device)
+        if table is not None:
+            return run_protocol(tr, self.pcfg, self.tcfg, mode=mode, table=table, device=self.device)
+        key = (tr.name, len(tr), mode)
+        if key not in self._protocols:
+            seed = self.tcfg.seed
+            init = (convert.params_from_jax(self.fresh[seed], self.device)
+                    if mode == "offline" and self.fresh and seed in self.fresh else None)
+            self._protocols[key] = run_protocol(
+                tr, self.pcfg, self.tcfg, mode=mode, init_params=init, device=self.device,
+                table=convert.fresh_table(self.pcfg, self.device, self.tcfg.table_slots, self.fresh))
+        return self._protocols[key]
+
+    def protocol_chain(self, workloads: list, mode: str, table: ModelTable | None = None) -> list[RunResult]:
+        """Protocol runs that share one table, fine-tuned link by link
+        (Fig. 11's shape: link i starts from the table links < i left
+        behind); without ``table`` each link starts from fresh weights, as
+        the reference's ``Session.protocol_chain`` does without a
+        pretraining recipe."""
+        return [self.protocol(w, mode, table=table) for w in workloads]
 
 
 def emit(name: str, rows: list[dict], t0: float) -> None:

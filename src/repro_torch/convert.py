@@ -10,7 +10,9 @@ package memoises after pretraining (``repro.uvm.runtime._table_to_host``)::
 
 with numpy arrays for every tensor.  :func:`blob_from_npz` reads the same
 structure from the ``.npz`` that ``scripts/export_torch_reference.py``
-writes (params only: a frozen run re-initialises the optimizer moments).
+writes: params, the AdamW moments (``opt_state``) where a slot has them and
+the LUCIR snapshot (``prev_params``) where it is set, so that a fine-tuned
+run starts from the same optimizer state as the JAX package's table.
 
 A table's fresh slots draw their weights from ``torch.Generator`` in the
 port and from ``jax.random`` in the JAX package.  To start a run from the
@@ -72,9 +74,27 @@ def table_from_blob(blob: dict, pcfg: PredictorConfig, device, fresh: dict | Non
     return table
 
 
+#: the ``.npz`` key prefixes of a slot's AdamW moments and LUCIR snapshot
+#: (``slot<s>/opt/m/<param key>``, ``slot<s>/opt/v/<param key>``,
+#: ``slot<s>/prev/<param key>``); no param key starts with them
+NPZ_TREES = {"opt/m/": "m", "opt/v/": "v", "prev/": "prev_params"}
+
+
+def _from_planes(a: np.ndarray) -> np.ndarray:
+    """A float32 array stored as its four byte planes (uint8, shape
+    ``(4, *shape)``, least significant byte first, as the export script
+    writes it) back, bit for bit; any other array as it is."""
+    if a.dtype != np.uint8:
+        return a
+    return np.ascontiguousarray(np.moveaxis(a, 0, -1)).view("<f4")[..., 0]
+
+
 def blob_from_npz(path: str | Path) -> dict:
     """The host blob stored in an ``.npz`` of ``slot<s>/<param key>`` arrays
-    plus ``slot<s>/{step,n_updates,last_acc}`` and ``n_slots``."""
+    plus ``slot<s>/{step,n_updates,last_acc}`` and ``n_slots``, and where a
+    slot has them its moments and snapshot under ``NPZ_TREES``' prefixes
+    (``opt_state`` an :class:`OptState` of numpy dicts, else ``None``); a
+    float32 array may be stored as its byte planes (``_from_planes``)."""
     with np.load(path) as z:
         slots: dict[int, dict] = {}
         for key in z.files:
@@ -84,8 +104,18 @@ def blob_from_npz(path: str | Path) -> dict:
             e = slots.setdefault(int(head[len("slot"):]), {"params": {}})
             if name in ("step", "n_updates", "last_acc"):
                 e[name] = z[key].item()
+                continue
+            pre = next((pre for pre in NPZ_TREES if name.startswith(pre)), None)
+            if pre is None:
+                e["params"][name] = _from_planes(z[key])
             else:
-                e["params"][name] = z[key]
+                e.setdefault(NPZ_TREES[pre], {})[name[len(pre):]] = _from_planes(z[key])
+        for e in slots.values():
+            m, v = e.pop("m", None), e.pop("v", None)
+            if (m is None) != (v is None):
+                raise ValueError(f"{path}: a slot has one AdamW moment without the other")
+            e["opt_state"] = None if m is None else OptState(m=m, v=v)
+            e.setdefault("prev_params", None)
         return {"n_slots": int(z["n_slots"]), "slots": slots}
 
 

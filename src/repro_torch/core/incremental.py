@@ -236,8 +236,14 @@ def run_protocol(
     kind: str = "transformer",
     in_et_flags: np.ndarray | None = None,  # per-access E∪T membership (thrash term)
     table: ModelTable | None = None,
+    init_params: dict | None = None,
     device: str | torch.device = "cuda",
 ) -> RunResult:
+    """One prediction-accuracy protocol run (strictly causal top-1).
+    ``offline`` trains one model from ``init_params`` (a flat dict of
+    tensors on ``device``: e.g. the JAX package's initial weights for
+    ``tcfg.seed``), or from the port's own initialisation for that seed; the
+    other modes start each slot from ``table`` or a fresh one."""
     assert mode in ("online_single", "online_multi", "ours", "offline")
     trainer = Trainer(pcfg, tcfg, kind, device)
     vocab = DeltaVocab(pcfg.delta_vocab)
@@ -250,7 +256,7 @@ def run_protocol(
         n_active = max(vocab.n_classes, 2)
         rng = np.random.default_rng(tcfg.seed)
         train_idx = rng.permutation(len(fs))[: len(fs) // 2]
-        entry = Entry(params=trainer.new_params(tcfg.seed))
+        entry = Entry(params=init_params if init_params is not None else trainer.new_params(tcfg.seed))
         half = FeatureSet(*(getattr(fs, f.name)[train_idx] for f in dataclasses.fields(fs)))
         for _ in range(3):  # extra passes — it has future knowledge anyway
             entry = trainer.train_group(entry, half, n_active)

@@ -70,6 +70,30 @@ def test_multi_tenant_modules_import_no_jax():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_figures_entry_point_imports_no_jax():
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    child = _SERVE_CHILD.replace("import repro_torch.launch.serve", "import repro_torch.bench.figures, "
+                                 "repro_torch.launch.serve")
+    out = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_figures_entry_point_defaults_to_the_card():
+    from repro_torch.bench import figures
+    from repro_torch.configs.predictor_paper import SMOKE
+    from repro_torch.core.incremental import TrainConfig, run_protocol
+    from repro_torch.uvm import trace as T
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default device is usable here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        figures.main(["--only", "fig3"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_protocol(T.get_trace("AddVectors", 0.1), SMOKE, TrainConfig(), mode="offline")
+    assert figures.Context(device="cpu").device.type == "cpu"
+
+
 def test_port_sources_name_no_jax_import():
     for path in (SRC / "repro_torch").rglob("*.py"):
         for line in path.read_text().splitlines():
