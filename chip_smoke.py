@@ -162,6 +162,29 @@ Phases, in order; any failure exits non-zero:
               column's host seconds, compressed events and gate openings.
               The full figures are the runner's (``python -m
               repro_torch.bench.figures --scale paper``).
+11. zoo and QoS — (a) ``predictor.init(s, CONFIG)`` for the slots of
+              ``experiments/torch/init_paper_slots.npz`` (the JAX package's
+              own initial weights): differing elements and ulp within
+              ``WEIGHT_SHARE`` and ``WEIGHT_ULP`` (the CPU test's limits);
+              (b) Fig. 10's four predictor kinds (``online_single`` from
+              fresh weights) on ``FIG10_BENCH`` at the paper preset against
+              ``figures_paper_ref.json``; (c) Table IX's first drift trace
+              (x1.25, its SHA-256 equal): the frozen-pattern and 256-fault
+              re-classifying managers from the quick memo of Table IX's
+              recipe, and ``hpe`` + ``tree`` (counters equal), with the
+              reference's asserts (at least 2 switches, fewer pages thrashed
+              than ``hpe`` + ``tree``); (d) Table X's StreamTriad +
+              RandomScan at x2.5: solo, shared pool and budgeted mux, the
+              budgets equal and the well-behaved tenant thrashing no more
+              under budgets than alone or shared, ``evict_select`` called on
+              four keys; (b)-(d) equal where ``scripts/
+              rehearse_zoo_qos_cpu.py`` gives equal (``ZOO_EQUAL``), else
+              within phase 7 (b)'s limits, against
+              ``experiments/torch/tables_quick_ref.json``; (e) the ``random``
+              policy's runs on ATAX and Hotspot, counters and final state
+              equal; launches per column.  The full Tables IX and X and Fig.
+              10 are the runners' (``--only table9 table10 --scale quick``,
+              ``--only fig10 --scale paper``).
 
 The last lines are the card's ``nvidia-smi`` line, a ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -2105,15 +2128,15 @@ BOTH_TABLES_RUN = "StreamTriad+2DCONV|mux|tuned"
 
 
 def merge_sha256(trace) -> str:
-    """The SHA-256 of a merge's page, pc, tb, kernel and tenant arrays (int32,
-    in that order), as ``scripts/export_torch_reference.py --concurrent``
-    hashes the JAX package's."""
+    """The SHA-256 of a trace's page, pc, tb and kernel arrays and, for a
+    merge, its tenant tags (int32, in that order), as
+    ``scripts/export_torch_reference.py`` hashes the JAX package's."""
     import hashlib
 
     import numpy as np
 
     h = hashlib.sha256()
-    for a in (trace.page, trace.pc, trace.tb, trace.kernel, trace.tenant):
+    for a in (trace.page, trace.pc, trace.tb, trace.kernel) + (() if trace.tenant is None else (trace.tenant,)):
         h.update(np.ascontiguousarray(a, np.int32).tobytes())
     return h.hexdigest()
 
@@ -2132,10 +2155,10 @@ def tuned_distance(res, want: dict) -> dict:
             and res.per_group_acc == want["per_group_acc"]}
 
 
-def check_tuned(name: str, d: dict) -> None:
-    """A fine-tuned run of (c) or (d): equal where the rehearsal gave equal,
+def check_tuned(name: str, d: dict, equal: tuple = CONCURRENT_EQUAL) -> None:
+    """A fine-tuned run: equal where the rehearsal gave equal (``equal``),
     else within phase 7 (b)'s limits."""
-    if name in CONCURRENT_EQUAL:
+    if name in equal:
         check(d["equal"], f"{name}: not equal to the JAX package's run, as the CPU rehearsal was: {d}")
         return
     check(d["n_predictions_equal"] and d.get("occupancy_equal", True), f"{name}: prediction count or occupancy differ")
@@ -2436,6 +2459,202 @@ def figure_launch_checks(columns: dict) -> None:
             check(col["launches"][k] > 0, f"the {name} column never launched {k}")
 
 
+# --- phase 11: the predictor zoo, drift, QoS budgets and the random policy ---------------
+
+TABLES_QUICK_REF = ROOT / "experiments" / "torch" / "tables_quick_ref.json"
+# (a): the JAX package's draws at CONFIG, by tests/test_torch_random.py's
+# limits (on this host's CPU 7-9 of 632,066 elements differ, by at most
+# 3 ulp; the draws are made on the host, so the card's are the same)
+WEIGHT_ULP, WEIGHT_SHARE = 3, 5e-5
+# (b): Fig. 10's kinds on its shortest benchmark at the paper preset
+FIG10_BENCH = "ATAX"
+# (b)-(d): the runs scripts/rehearse_zoo_qos_cpu.py gives equal to the JAX
+# package's, held equal on the card; the others (the mlp kind, 0.0003 off
+# in top-1 on the CPU) within phase 7 (b)'s limits
+ZOO_EQUAL = ("protocol|ATAX|online_single", "protocol|ATAX|online_single|kind=lstm",
+             "protocol|ATAX|online_single|kind=cnn", "table9|frozen", "table9|reclass256", "table10|solo",
+             "table10|shared", "table10|budgeted")
+
+
+def _ulp_diff(got, want) -> tuple[int, int, int]:
+    """(elements, differing elements, largest ulp) of two float32 arrays."""
+    import numpy as np
+
+    a = np.ascontiguousarray(got, np.float32).reshape(-1).view(np.int32).astype(np.int64)
+    b = np.ascontiguousarray(want, np.float32).reshape(-1).view(np.int32).astype(np.int64)
+    d = np.abs(a - b)
+    return d.size, int(np.count_nonzero(d)), int(d.max(initial=0))
+
+
+def state_sha256(state) -> str:
+    """The SHA-256 of a simulator state's resident, evicted-once and
+    last-access arrays, as the export hashes the JAX package's."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in (state.resident, state.evicted_once, state.last_access):
+        h.update(a.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def zoo_qos_path(dev) -> dict:
+    """Phase 11: (a) the JAX package's initial weights drawn by the port;
+    (b) Fig. 10's four predictor kinds on ``FIG10_BENCH`` at the paper
+    preset (``figures_paper_ref.json``); (c) Table IX's first drift trace:
+    the frozen-pattern and the 256-fault re-classifying managers and
+    ``hpe`` + ``tree``; (d) Table X's StreamTriad + RandomScan at x2.5:
+    solo, shared pool and budgeted mux (``evict_select`` on four keys);
+    (e) the ``random`` policy on ATAX and Hotspot.  (c)-(e) against
+    ``tables_quick_ref.json``.  Returns the launches of all its columns."""
+    import numpy as np
+
+    from repro_torch import convert, kernels
+    from repro_torch.bench import figures as FG
+    from repro_torch.bench import tables as TB
+    from repro_torch.configs.predictor_paper import CONFIG, CONFIG_QUICK
+    from repro_torch.core import predictor
+    from repro_torch.core.incremental import TrainConfig
+    from repro_torch.kernels import evict_select as ES
+    from repro_torch.uvm import runtime as R
+    from repro_torch.uvm import simulator as S
+    from repro_torch.uvm import trace as T
+
+    figs, quick = json.loads(FIGURES_REF.read_text()), json.loads(TABLES_QUICK_REF.read_text())
+    check((quick["preset"], quick["scale"], quick["cap"]) == ("quick", *TB.SCALE_PRESETS["quick"]),
+          "tables_quick_ref.json is not the quick preset")
+    # (a) the initial weights, drawn on the host and moved to the card
+    t0 = time.perf_counter()
+    for s, want in convert.fresh_slots(FRESH).items():
+        got = predictor.init(s, CONFIG, dev)
+        n = n_diff = worst = 0
+        for k, v in want.items():
+            a, b, c = _ulp_diff(got[k].cpu().numpy(), v)
+            n, n_diff, worst = n + a, n_diff + b, max(worst, c)
+        print(f"  (a) slot {s}: {n_diff} of {n} elements differ from the JAX package's, by at most {worst} ulp")
+        check(worst <= WEIGHT_ULP and n_diff <= WEIGHT_SHARE * n, f"slot {s}'s initial weights are off: {n_diff} "
+              f"elements, {worst} ulp (limits {WEIGHT_SHARE} of them, {WEIGHT_ULP} ulp)")
+    print(f"      in {time.perf_counter() - t0:.1f} s")
+    columns, got, n_keys = {}, {}, []
+
+    def column(name, items):
+        _sync(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        for key, fn in items:
+            got[key] = fn()
+        _sync(dev)
+        columns[name] = {"host_s": time.perf_counter() - t0, "runs": len(items), "launches": dict(kernels.LAUNCHES)}
+
+    ctx = TB.Context("paper", fresh=FRESH, device=dev)
+    qctx = TB.Context("quick", device=dev)
+    tcfg = TrainConfig(256, 2, 128)
+    w9, os9 = TB.TABLE9_SUITE[0]
+    ref9 = quick["tables_rows"]["table9"]["traces"][0]
+    check(ref9["oversub"] == os9 and ref9["sha256"] == merge_sha256(qctx.trace(w9)),
+          "Table IX's first drift trace differs from the JAX package's")
+
+    def learned(**kw):
+        tr = qctx.trace(w9)
+        mgr = R.manager_for(tr, CONFIG_QUICK, tcfg, oversubscription=os9,
+                            table=qctx.pretrain(CONFIG_QUICK, tcfg, scale=0.24), device=dev, **kw)
+        res = R.run_ours(tr, CONFIG_QUICK, tcfg, oversubscription=os9, manager=mgr)
+        return res, mgr.n_pattern_switches
+
+    ref10 = quick["tables_rows"]["table10"]["scenarios"][0]
+    solo_tr, merged = TB.table10_traces(ref10["good"])
+    check((ref10["solo_sha256"], ref10["merged_sha256"]) == (merge_sha256(solo_tr),
+                                                             merge_sha256(merged)),
+          "Table X's traces differ from the JAX package's")
+    run10 = lambda tr, **kw: R.run_ours(tr, CONFIG_QUICK, tcfg, oversubscription=ref10["oversub"], device=dev, **kw)
+    select = S.evict_select
+
+    def counting(cand, keys, n_evict):
+        n_keys.append(len(keys))
+        return select(cand, keys, n_evict)
+
+    def random_run(r):
+        tr = T.get_trace(r["benchmark"], 1.0)
+        tr = tr.slice(0, min(len(tr), r["n_accesses"]))
+        return S.run(tr, policy="random", prefetch=r["prefetch"], oversubscription=r["oversub"], seed=r["seed"],
+                     device=dev)
+
+    column("fig10 " + FIG10_BENCH, [(k, lambda k=k: ctx.protocol(FIG10_BENCH, "online_single", kind=k))
+                                    for k in FG.FIG10_KINDS])
+    column("table9 drift", [("frozen", lambda: learned(reclass_interval=1 << 30)),
+                            ("reclass256", lambda: learned(reclass_interval=256, reclass_hysteresis=2)),
+                            ("rule", lambda: qctx.sim(w9, "hpe", "tree", os9))])
+    S.evict_select = counting
+    try:
+        column("table10 " + ref10["good"], [("solo", lambda: run10(solo_tr)), ("shared", lambda: run10(merged)),
+                                            ("budgeted", lambda: run10(merged, qos=TB.table10_qos(ref10["good"])))])
+    finally:
+        S.evict_select = select
+    runs = quick["tables_rows"]["random_policy"]
+    column("random", [(f"random|{i}", lambda r=r: random_run(r)) for i, r in enumerate(runs)])
+    print("  columns: " + json.dumps({k: {f: v[f] for f in ("host_s", "runs")} for k, v in columns.items()}))
+    dist = {}
+    # (b) Fig. 10's kinds: each a protocol run from fresh weights
+    for kind in FG.FIG10_KINDS:
+        key = f"protocol|{FIG10_BENCH}|online_single" + ("" if kind == "transformer" else f"|kind={kind}")
+        dist[key] = protocol_distance(got[kind], figs["cells"][key])
+    row = {"benchmark": FIG10_BENCH, **{k: round(got[k].top1, 3) for k in FG.FIG10_KINDS}}
+    want_row = next(r for r in figs["figures_rows"]["fig10"] if r["benchmark"] == FIG10_BENCH)
+    print(f"  (b) Fig. 10's row on {FIG10_BENCH}: {json.dumps(row)}; the JAX package's {json.dumps(want_row)}")
+    # (c) Table IX: the rule column exact, the learned runs by the rehearsal's limits, the reference's asserts
+    (froz, _), (r256, switches), rule = got["frozen"], got["reclass256"], got["rule"]
+    check(rule == ref9["rule"], f"Table IX's hpe + tree counters differ: {rule} against {ref9['rule']}")
+    check(switches >= 2, f"the 256-fault re-classifier switched {switches} times (< 2)")
+    check(r256.stats["pages_thrashed"] < rule["pages_thrashed"], "the re-classifier thrashes no less than hpe + tree")
+    dist["table9|frozen"] = run_distance(froz, ref9["frozen"])
+    dist["table9|reclass256"] = run_distance(r256, ref9["reclass256"])
+    print(f"  (c) {ref9['name']} x{os9}: switches {switches} (JAX {ref9['switches']}), pages thrashed frozen "
+          f"{froz.stats['pages_thrashed']}, reclass-256 {r256.stats['pages_thrashed']}, hpe + tree "
+          f"{rule['pages_thrashed']} (equal)")
+    # (d) Table X: the fairness claim, the budgets, the per-tenant counters
+    solo, shared, budgeted = got["solo"], got["shared"], got["budgeted"]
+    g = lambda res: res.per_tenant_stats["0"]["pages_thrashed"]
+    check(g(budgeted) <= solo.stats["pages_thrashed"] and g(budgeted) <= g(shared),
+          f"budgets did not keep {ref10['good']} whole: budgeted {g(budgeted)}, solo "
+          f"{solo.stats['pages_thrashed']}, shared {g(shared)}")
+    check(budgeted.budgets == ref10["budgeted"]["budgets"], f"the budgets {budgeted.budgets} differ from the JAX "
+          f"package's {ref10['budgeted']['budgets']}")
+    check(4 in n_keys, "the budgeted run never selected victims on four keys")
+    dist["table10|solo"] = run_distance(solo, ref10["solo"])
+    for name in ("shared", "budgeted"):
+        dist[f"table10|{name}"] = tuned_distance(got[name], ref10[name])
+    print(f"  (d) {ref10['good']}+RandomScan x{ref10['oversub']}: {ref10['good']} thrashes solo "
+          f"{solo.stats['pages_thrashed']}, shared {g(shared)}, budgeted {g(budgeted)}; budgets {budgeted.budgets}; "
+          f"evict_select calls by key count {json.dumps({n: n_keys.count(n) for n in sorted(set(n_keys))})}")
+    print("  (b)-(d) " + json.dumps(dist))
+    for k, d in dist.items():
+        check_tuned(k, d, ZOO_EQUAL)
+    print(f"  (b)-(d): {sum(d['equal'] for d in dist.values())} of {len(dist)} runs equal to the JAX package's, "
+          f"the rest within phase 7 (b)'s limits")
+    # (e) the random policy: every counter and the final state
+    for i, r in enumerate(runs):
+        res = got[f"random|{i}"]
+        check(res.stats == r["stats"] and state_sha256(res.state) == r["state_sha256"],
+              f"the random policy on {r['benchmark']} {r['prefetch']} x{r['oversub']} differs: {res.stats} against "
+              f"{r['stats']}")
+    print(f"  (e) the random policy: {len(runs)} runs on ATAX and Hotspot, counters and final state equal")
+    print("  launches: " + json.dumps({k: {n: c for n, c in v["launches"].items() if c} for k, v in columns.items()}))
+    zoo_launch_checks(columns)
+    return {k: sum(c["launches"][k] for c in columns.values()) for k in next(iter(columns.values()))["launches"]}
+
+
+def zoo_launch_checks(columns: dict) -> None:
+    """Every column that trains launched both ``thrash_ce`` kernels, the
+    transformer's the attention forward and backward, every simulator
+    column ``evict_select``."""
+    training = ("thrash_ce_fwd", "thrash_ce_bwd")
+    need = {"fig10 " + FIG10_BENCH: training + ("flash_attention", "flash_attention_bwd"),
+            "table9 drift": training + ("flash_attention", "flash_attention_bwd", "evict_select"),
+            "random": ("evict_select",)}
+    for name, col in columns.items():
+        for k in need.get(name, training + ("flash_attention", "flash_attention_bwd", "evict_select")):
+            check(col["launches"][k] > 0, f"the {name} column never launched {k}")
+
+
 def main() -> int:
     import argparse
 
@@ -2469,13 +2688,13 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
         smi = nvidia_smi_line()
-        print(f"[1/10] device: {name} (count {count}); nvidia-smi: {smi}")
+        print(f"[1/11] device: {name} (count {count}); nvidia-smi: {smi}")
         print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
         t0 = time.perf_counter()
         LIBRARY.cdll()
         how = "built" if LIBRARY.build_seconds is not None else "loaded the existing build"
-        print(f"[2/10] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
+        print(f"[2/11] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
         for line in LIBRARY.ptxas_log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line or line.startswith("=="):
                 print("      " + line.strip())
@@ -2489,7 +2708,7 @@ def main() -> int:
             time_training(dev, args.time_training)
             return 0
 
-        print(f"[3/10] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
+        print(f"[3/11] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
         rows = [kernel_evict_select(dev), *kernel_freq_table(dev), kernel_flash_attention(dev),
                 kernel_flash_attention_bf16(dev), kernel_flash_attention_bwd(dev), kernel_decode_attention(dev),
                 kernel_ssd_scan(dev), *kernel_thrash_ce(dev)]
@@ -2508,16 +2727,16 @@ def main() -> int:
               f"step {tf['step_device_ops_per_call']}")
 
         by_path = {}
-        print(f"[4/10] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
+        print(f"[4/11] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         _, by_path["run_ours"] = main_path(dev)
-        print(f"[5/10] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
+        print(f"[5/11] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["serve"], qwen2_engine, qwen2_prompt = serve_path(dev)
-        print(f"[6/10] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
+        print(f"[6/11] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["serve_mamba2"] = serve_mamba2_path(dev)
-        print(f"[7/10] train: one train_group, the fine-tuned run_ours (Hotspot x1.5, CONFIG, TrainConfig()) and the "
+        print(f"[7/11] train: one train_group, the fine-tuned run_ours (Hotspot x1.5, CONFIG, TrainConfig()) and the "
               f"manager KV offload (qwen2-0.5b full width), on the card (at {time.perf_counter() - start:.0f} s)")
         by_path["train_group"] = train_group_check(dev)
         print(f"      (b) at {time.perf_counter() - start:.0f} s")
@@ -2525,19 +2744,26 @@ def main() -> int:
         print(f"      (c) at {time.perf_counter() - start:.0f} s")
         by_path["serve_manager"] = serve_manager_check(dev, qwen2_engine, qwen2_prompt)
         del qwen2_engine
-        print(f"[8/10] tables: the table runner at the paper preset, x1.25, 11 benchmarks (five simulator cells, "
+        print(f"[8/11] tables: the table runner at the paper preset, x1.25, 11 benchmarks (five simulator cells, "
               f"UVMSmart, frozen ours; fine-tuned ours on {len(TABLES_TUNED)}), on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["table6"], tables_ctx, tables_tuned = tables_path(dev)
-        print(f"[9/10] concurrent: Tables VII and VIII's cells, four pairs at the paper preset, x1.25 (frozen mux and "
+        print(f"[9/11] concurrent: Tables VII and VIII's cells, four pairs at the paper preset, x1.25 (frozen mux and "
               f"merged on all four; fine-tuned and Table VII on {', '.join(CONCURRENT_TUNED)}), on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["concurrent"] = concurrent_path(dev)
         t10 = time.perf_counter()
-        print(f"[10/10] figures: Figs. 3, 12, 13 and 14's cells on {', '.join(FIG3_BENCH)} and Figs. 4 and 11's "
+        print(f"[10/11] figures: Figs. 3, 12, 13 and 14's cells on {', '.join(FIG3_BENCH)} and Figs. 4 and 11's "
               f"protocols on {FIG_TUNED} at the paper preset, on the card (at {t10 - start:.0f} s)")
         by_path["figures"] = figures_path(dev, tables_ctx, tables_tuned)
         print(f"      phase 10 took {time.perf_counter() - t10:.1f} s")
+        t11 = time.perf_counter()
+        print(f"[11/11] zoo and QoS: the JAX package's initial weights, Fig. 10's four predictor kinds on "
+              f"{FIG10_BENCH}, Table IX's first drift trace, Table X's StreamTriad+RandomScan under budgets and the "
+              f"random policy, on the card (at {t11 - start:.0f} s)")
+        by_path["zoo_qos"] = zoo_qos_path(dev)
+        print(f"      phase 11 took {time.perf_counter() - t11:.1f} s; launches "
+              + json.dumps({k: c for k, c in by_path["zoo_qos"].items() if c}))
         for r in rows:
             r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}
             r["launches"] = sum(r["launches_by_path"].values())

@@ -93,7 +93,7 @@ the page-mass and touched-page stream that ``serve_qwen2_ref.npz`` recorded
 (32 pages, 16 resident, 256 steps), so no LM runs: its stats, every
 observed batch's prefetch blocks, pattern and accuracy, and the initial
 params of all 8 slots its table could draw (``jax.random.key(s)``), which
-the port, whose fresh slots draw from ``torch.Generator``s, starts from.
+the port starts from (its own draws of them are a few ulp apart here and there).
 It takes about 15 seconds on a CPU and writes 0.3 MB.
 
     PYTHONPATH=src python scripts/export_torch_reference.py --tables
@@ -135,8 +135,9 @@ to ``pretrain_paper_s321.npz`` as ``pretrain_paper.npz`` is, with the same
 checks, and loaded back the same way).  Beside them, the rows ``table7`` and ``table8`` (once
 frozen, once fine-tuned) build from those runs.  ``init_paper_slots.npz``
 holds ``Trainer.new_params(s)`` (float32) for the slots those runs
-created, and for those it held already, which the port, whose fresh slots
-draw from ``torch.Generator``, starts from when asked (``fresh=``).
+created, and for those it held already, which the port (whose own draws
+of them are a few ulp apart here and there) starts from when asked
+(``fresh=``).
 
     PYTHONPATH=src python scripts/export_torch_reference.py --figures
 
@@ -158,7 +159,30 @@ top-1, prediction count, per-group accuracy and IPC at every prediction
 overhead (``ours|<benchmark>|<oversubscription>|thrash=<bool>``), each
 protocol run's top-1, per-group accuracy and counts
 (``protocol|<benchmark>|<mode>``, a chain's links
-``...|chain_seed0=123|link<i>``).  It takes tens of minutes on a CPU.
+``...|chain_seed0=123|link<i>``; another predictor kind's
+``...|kind=<kind>``).  It takes tens of minutes on a CPU.
+
+    PYTHONPATH=src python scripts/export_torch_reference.py --quick
+
+writes ``experiments/torch/tables_quick_ref.json`` and
+``figures_quick_ref.json``, and adds Fig. 10's rows and cells to
+``figures_paper_ref.json``: the reference's tables (``table1``-``table4``,
+``table6``, ``table8``) and figures (``fig3``, ``fig4``, ``fig6``,
+``fig10``, ``fig12``-``fig14``) called unchanged on a quick
+``Session(store=RunStore(enabled=False))``, every cell recorded as for the
+figures, its ``ours`` from the committed memo of ``Session().pretrained()``
+(``experiments/cache/pretrain_0e86a9ef3a27bb0d.pkl``); Table VII and Fig.
+11 need quick tables that are not committed and are left out.  Tables IX
+and X are computed by the calls ``table9`` and ``table10`` make (those two
+functions also rewrite ``BENCH_sim.json``, so they are not called): each
+drift trace's SHA-256, each run's stats, top-1, per-group accuracy,
+per-tenant stats and budgets, and the rows.  Beside them
+(``random_policy``), the ``random`` eviction policy's ``simulator.run`` on
+ATAX and Hotspot at the paper preset's scale (``RANDOM_RUNS``): stats and
+the SHA-256 of the final state's resident, evicted-once and last-access
+arrays.  The pretraining memos are read from a temporary copy, so nothing
+under ``experiments/cache/`` is written.  It takes about 4.5 minutes on a
+CPU, 2 of them Fig. 10 at the paper preset.
 """
 from __future__ import annotations
 
@@ -833,15 +857,16 @@ CONCURRENT = {"preset": "paper", "scale": 1.0, "cap": 60_000, "oversubscription"
               "table7_pretrain": {"scale": 0.6, "seed0": 321, "max_rounds": 2}}
 
 
-def merge_sha256(trace) -> str:
-    """The SHA-256 of a merge's page, pc, tb, kernel and tenant arrays
-    (int32, in that order); ``chip_smoke.py`` hashes the port's the same way."""
+def trace_sha256(trace) -> str:
+    """The SHA-256 of a trace's page, pc, tb and kernel arrays and, for a
+    merge, its tenant tags (int32, in that order); ``chip_smoke.py`` hashes
+    the port's the same way."""
     import hashlib
 
     import numpy as np
 
     h = hashlib.sha256()
-    for a in (trace.page, trace.pc, trace.tb, trace.kernel, trace.tenant):
+    for a in (trace.page, trace.pc, trace.tb, trace.kernel) + (() if trace.tenant is None else (trace.tenant,)):
         h.update(np.ascontiguousarray(a, np.int32).tobytes())
     return h.hexdigest()
 
@@ -934,7 +959,7 @@ def _export_concurrent(tmp: Path) -> None:
             parts.append(tr.slice(0, min(len(tr), c["cap"])))
         w = merges[key] = T.concurrent(parts, seed=c["seed"], slice_len=c["slice_len"])
         rec = {"n_accesses": len(w), "n_blocks": w.n_blocks, "parts": [len(p) for p in parts],
-               "tenant_names": list(w.tenant_names), "sha256": merge_sha256(w), "runs": {}}
+               "tenant_names": list(w.tenant_names), "sha256": trace_sha256(w), "runs": {}}
         ours[key] = {}
         for kind, tcfg in (("frozen", frozen_cfg), ("fine_tuned", tuned_cfg)):
             for tenancy in ("mux", "merged"):
@@ -1014,7 +1039,9 @@ def _recording_session(Session):
 
         def ours(self, w, oversub=1.25, seed=0, **kw):
             res = super().ours(w, oversub, seed, **kw)
-            self.cells[f"ours|{w}|{oversub}|thrash={kw.get('use_thrash_term', True)}"] = {
+            key = f"ours|{w}|{oversub}|thrash={kw.get('use_thrash_term', True)}"
+            key += f"|tenancy={kw['tenancy']}" if kw.get("tenancy", "mux") != "mux" else ""
+            self.cells[key] = {
                 "stats": res.stats, "top1": res.top1, "n_predictions": res.n_predictions,
                 "per_group_acc": res.per_group_acc, "n_accesses": res.n_accesses,
                 "ipc": {str(us): res.ipc(pred_overhead_us=us) for us in FIGURES["overheads_us"]}}
@@ -1024,6 +1051,7 @@ def _recording_session(Session):
             out = super().protocol_chain(workloads, mode, kind=kind, pretrain=pretrain)
             for i, (w, r) in enumerate(zip(workloads, out)):
                 key = f"protocol|{w}|{mode}" + ("" if pretrain is None else f"|chain_seed0={pretrain.seed0}|link{i}")
+                key += "" if kind == "transformer" else f"|kind={kind}"
                 self.cells[key] = {"top1": r.top1, "per_group": list(r.per_group), "n_classes": r.n_classes,
                                    "n_models": r.n_models, "n_samples": r.n_samples}
             return out
@@ -1103,6 +1131,229 @@ def _export_figures(tmp: Path) -> None:
     print(json.dumps({"seconds": ref["seconds"], "figure_seconds": seconds, "created_slots": ref["created_slots"],
                       "init_slots": init_slots}))
 
+QUICK = {"preset": "quick", "scale": 0.4, "cap": 6000,
+         "tables": ["table1", "table2", "table3", "table4", "table6", "table8"],
+         "figures": ["fig3", "fig4", "fig6", "fig10", "fig12", "fig13", "fig14"],
+         "memos": ["pretrain_0e86a9ef3a27bb0d.pkl", "pretrain_78abbd28fc2f0c99.pkl"]}
+
+
+def _run_record(res) -> dict:
+    return {"stats": res.stats, "top1": res.top1, "n_predictions": res.n_predictions,
+            "per_group_acc": list(res.per_group_acc), "per_tenant_stats": res.per_tenant_stats,
+            "per_tenant_top1": res.per_tenant_top1, "budgets": res.budgets}
+
+
+def _table9(sess) -> dict:
+    """Table IX's runs and rows, by the calls ``benchmarks/tables.py``'s
+    ``table9`` makes (which also rewrites ``BENCH_sim.json``, so it is not
+    called): per drift trace the frozen-pattern, 256- and 512-fault
+    re-classifying managers from ``PretrainSpec(scale=0.24)``'s table at
+    ``TrainSpec(256, 2, 128)``, and ``hpe`` + ``tree``."""
+    import numpy as np
+
+    from repro.configs.predictor_paper import CONFIG_QUICK
+    from repro.uvm import runtime as R
+    from repro.uvm.api.specs import PretrainSpec, TrainSpec
+
+    frozen = 1 << 30
+    train = TrainSpec(group_size=256, epochs=2, batch_size=128)
+    tcfg = train.to_train_config()
+    pretrain = PretrainSpec(scale=0.24)
+
+    def learned(tr, oversub, **kw):
+        mgr = R.manager_for(tr, CONFIG_QUICK, tcfg, oversubscription=oversub,
+                            table=sess.pretrained(pretrain, pcfg=CONFIG_QUICK, train=train), **kw)
+        res = R.run_ours(tr, CONFIG_QUICK, tcfg, oversubscription=oversub, manager=mgr)
+        return res, mgr.n_pattern_switches
+
+    cycle = ("StreamTriad", "RandomScan")
+    suite = [(dict(phases=cycle + ("StreamTriad",), cap=6000, segment=1024), 1.25),
+             (dict(phases=cycle * 2 + ("StreamTriad",), cap=6400, segment=1280), 1.2),
+             (dict(phases=cycle * 2 + ("StreamTriad",), cap=6000, segment=1024), 1.3)]
+    traces, rows, d_top1, d_thrash = [], [], [], []
+    for spec, oversub in suite:
+        w = sess.drifting(spec["phases"], scale=0.4, cap=spec["cap"], segment=spec["segment"])
+        tr = sess.trace(w)
+        froz, _ = learned(tr, oversub, reclass_interval=frozen)
+        r256, switches = learned(tr, oversub, reclass_interval=256, reclass_hysteresis=2)
+        r512, _ = learned(tr, oversub, reclass_interval=512, reclass_hysteresis=2)
+        rule = sess.sim(w, "hpe", "tree", oversub)
+        traces.append({**spec, "phases": list(spec["phases"]), "oversub": oversub, "name": tr.name,
+                       "n_accesses": len(tr), "sha256": trace_sha256(tr), "switches": switches,
+                       "frozen": _run_record(froz), "reclass256": _run_record(r256),
+                       "reclass512": _run_record(r512), "rule": rule})
+        rows.append({
+            "trace": tr.name.replace("drift:", ""), "oversub": oversub,
+            "frozen_top1": round(froz.top1, 3), "frozen_thrash": froz.stats["pages_thrashed"],
+            "reclass256_top1": round(r256.top1, 3), "reclass256_thrash": r256.stats["pages_thrashed"],
+            "switches": switches,
+            "reclass512_top1": round(r512.top1, 3), "reclass512_thrash": r512.stats["pages_thrashed"],
+            "rule_thrash": rule["pages_thrashed"], "derived": f"dtop1={r256.top1 - froz.top1:+.3f}",
+        })
+        d_top1.append(r256.top1 - froz.top1)
+        d_thrash.append(r256.stats["pages_thrashed"] - froz.stats["pages_thrashed"])
+    avg_t1, avg_thr = float(np.mean(d_top1)), float(np.mean(d_thrash))
+    rows.insert(0, {"trace": "AVG_RECLASS_VS_FROZEN", "oversub": "", "frozen_top1": "", "frozen_thrash": "",
+                    "reclass256_top1": "", "reclass256_thrash": "", "switches": "", "reclass512_top1": "",
+                    "reclass512_thrash": "", "rule_thrash": "",
+                    "derived": f"dtop1={avg_t1:+.3f} dthrash={avg_thr:+.0f}"})
+    return {"train": {"group_size": 256, "epochs": 2, "batch_size": 128}, "traces": traces, "rows": rows}
+
+
+def _table10() -> dict:
+    """Table X's runs and rows, by the calls ``benchmarks/tables.py``'s
+    ``table10`` makes (which also rewrites ``BENCH_sim.json``, so it is not
+    called): per scenario the well-behaved tenant alone, the shared pool
+    and the budgeted mux, from fresh weights."""
+    from repro.configs.predictor_paper import CONFIG_QUICK
+    from repro.uvm import runtime as R
+    from repro.uvm import timing
+    from repro.uvm import trace as T
+    from repro.uvm import zoo as Z
+    from repro.uvm.api.specs import QosSpec, QosTierSpec, TrainSpec
+
+    tcfg = TrainSpec(group_size=256, epochs=2, batch_size=128).to_train_config()
+    cut = lambda tr: tr.slice(0, min(len(tr), 3000))
+
+    def tenant_ipc(stats):
+        return timing.ipc({"faults": stats["faults"], "pages_thrashed": stats["pages_thrashed"],
+                           "migrated_blocks": stats["faults"], "zero_copy": 0}, stats["accesses"])
+
+    scenarios, rows = [], []
+    for good, oversub in (("StreamTriad", 2.5), ("Hotspot", 1.6)):
+        qos = QosSpec(tiers=(QosTierSpec(good, floor=0.5, share=1.0),
+                             QosTierSpec("RandomScan", floor=0.05, share=1.0)))
+        solo_tr = cut(T.get_trace(good, scale=0.4))
+        merged = T.concurrent([cut(T.get_trace(good, scale=0.4)), cut(Z.get_trace("RandomScan", scale=0.4))],
+                              seed=0, slice_len=256)
+        solo = R.run_ours(solo_tr, CONFIG_QUICK, tcfg, oversubscription=oversub)
+        shared = R.run_ours(merged, CONFIG_QUICK, tcfg, oversubscription=oversub)
+        budgeted = R.run_ours(merged, CONFIG_QUICK, tcfg, oversubscription=oversub, qos=qos)
+        scenarios.append({"good": good, "oversub": oversub, "solo_sha256": trace_sha256(solo_tr),
+                          "merged_sha256": trace_sha256(merged), "solo": _run_record(solo),
+                          "shared": _run_record(shared), "budgeted": _run_record(budgeted)})
+        for name, res in (("shared", shared), ("budgeted", budgeted)):
+            g, sc = res.per_tenant_stats["0"], res.per_tenant_stats["1"]
+            ipc_g, ipc_s = tenant_ipc(g), tenant_ipc(sc)
+            rows.append({"scenario": f"{good}+RandomScan", "oversub": oversub, "pool": name,
+                         "good_thrash": g["pages_thrashed"], "scan_thrash": sc["pages_thrashed"],
+                         "solo_thrash": solo.stats["pages_thrashed"], "good_ipc": round(ipc_g, 4),
+                         "scan_ipc": round(ipc_s, 4),
+                         "ipc_spread": round(max(ipc_g, ipc_s) / max(min(ipc_g, ipc_s), 1e-9), 3),
+                         "budgets": res.budgets or ""})
+    return {"train": {"group_size": 256, "epochs": 2, "batch_size": 128}, "scenarios": scenarios, "rows": rows}
+
+
+#: the random policy's runs: (benchmark, prefetch, oversubscription, seed)
+#: at the paper preset's scale and cap
+RANDOM_RUNS = [["ATAX", "tree", 1.25, 0], ["ATAX", "demand", 1.5, 0], ["Hotspot", "tree", 1.25, 0],
+               ["Hotspot", "demand", 1.5, 0]]
+
+
+def _random_policy() -> list:
+    """The ``random`` eviction policy's ``run`` on ``RANDOM_RUNS``: stats
+    and the SHA-256 of the final resident, evicted-once and last-access
+    arrays."""
+    import hashlib
+
+    import numpy as np
+
+    from repro.uvm import simulator as S
+    from repro.uvm import trace as T
+
+    out = []
+    for b, pf, os_, seed in RANDOM_RUNS:
+        tr = T.get_trace(b, 1.0)
+        tr = tr.slice(0, min(len(tr), 60_000))
+        res = S.run(tr, policy="random", prefetch=pf, oversubscription=os_, seed=seed)
+        st = res.state
+        h = hashlib.sha256()
+        for a in (st.resident, st.evicted_once, st.last_access):
+            h.update(np.ascontiguousarray(a).tobytes())
+        out.append({"benchmark": b, "prefetch": pf, "oversub": os_, "seed": seed, "n_accesses": len(tr),
+                    "stats": {"pages_thrashed": int(st.thrash_events) * 16, "faults": int(st.faults),
+                              "migrated_blocks": int(st.migrations), "zero_copy": int(st.zero_copy),
+                              "occupancy": int(st.occupancy)},
+                    "state_sha256": h.hexdigest()})
+    return out
+
+
+def export_quick() -> None:
+    """The JAX package's quick preset, Tables IX and X, and Fig. 10 at the
+    paper preset (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="repro_quick_"))
+    os.environ["REPRO_JAX_CACHE"] = str(tmp)  # read when repro.uvm.api is imported
+    try:
+        _export_quick(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _export_quick(tmp: Path) -> None:
+    import dataclasses
+    import shutil
+    import time
+
+    sys.path.insert(0, str(ROOT))  # the benchmarks package
+    import benchmarks.common as BC
+    import benchmarks.figures as BF
+    import benchmarks.tables as BT
+    from repro.core.incremental import TrainConfig
+    from repro.uvm import runtime as R
+    from repro.uvm.api.session import Session
+    from repro.uvm.api.store import RunStore
+
+    BC.OUT_DIR = tmp  # the tables' and figures' CSVs
+    # the committed memos, copied: a recipe without one would pretrain and
+    # write its memo into this temporary directory, never experiments/cache/
+    R.PRETRAIN_CACHE_DIR = tmp / "pretrain"
+    R.PRETRAIN_CACHE_DIR.mkdir()
+    for name in QUICK["memos"]:
+        shutil.copy(ROOT / "experiments" / "cache" / name, R.PRETRAIN_CACHE_DIR / name)
+    Recording = _recording_session(Session)
+    t_start = time.perf_counter()
+    sess = Recording(store=RunStore(enabled=False))
+    assert (sess.scale, sess.cap) == (QUICK["scale"], QUICK["cap"])
+    rows, seconds = {}, {}
+    for name in QUICK["tables"]:
+        t0 = time.perf_counter()
+        rows[name] = getattr(BT, name)(sess)
+        seconds[name] = time.perf_counter() - t0
+    for name, fn in (("table9", lambda: _table9(sess)), ("table10", _table10), ("random_policy", _random_policy)):
+        t0 = time.perf_counter()
+        rows[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+        print(json.dumps({"table": name, "seconds": seconds[name], "rows": rows[name]}), flush=True)
+    ref = {**QUICK, "train": dataclasses.asdict(TrainConfig(1024, 2, 128)), "benchmarks": list(sess.benches),
+           "cells": sess.cells, "tables_rows": rows, "table_seconds": seconds,
+           "seconds": time.perf_counter() - t_start}
+    (OUT / "tables_quick_ref.json").write_text(json.dumps(ref, indent=1) + "\n")
+    t_start = time.perf_counter()
+    sess = Recording(store=RunStore(enabled=False))
+    rows, seconds = {}, {}
+    for name in QUICK["figures"]:
+        t0 = time.perf_counter()
+        rows[name] = getattr(BF, name)(sess)
+        seconds[name] = time.perf_counter() - t0
+    ref = {**QUICK, "featured": list(BF.FEATURED), "cells": sess.cells,
+           "figures_rows": rows, "figure_seconds": seconds, "seconds": time.perf_counter() - t_start}
+    (OUT / "figures_quick_ref.json").write_text(json.dumps(ref, indent=1) + "\n")
+    # Fig. 10 at the paper preset, added to figures_paper_ref.json
+    path = OUT / "figures_paper_ref.json"
+    paper = json.loads(path.read_text())
+    sess = Recording.paper(store=RunStore(enabled=False))
+    t0 = time.perf_counter()
+    paper["figures_rows"]["fig10"] = BF.fig10(sess)
+    paper["figure_seconds"]["fig10"] = time.perf_counter() - t0
+    paper["cells"].update({k: v for k, v in sess.cells.items() if "|kind=" in k})
+    if "fig10" not in paper["figures"]:
+        paper["figures"].append("fig10")
+    path.write_text(json.dumps(paper, indent=1) + "\n")
+    print(json.dumps({"fig10": paper["figures_rows"]["fig10"], "seconds": paper["figure_seconds"]["fig10"]}))
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1117,7 +1368,12 @@ def main() -> None:
     ap.add_argument("--tables", action="store_true", help="write tables_paper_ref.json (and nothing else)")
     ap.add_argument("--concurrent", action="store_true", help="write concurrent_paper_ref.json, "
                     "pretrain_paper_s321.npz and init_paper_slots.npz (and nothing else)")
+    ap.add_argument("--quick", action="store_true", help="write tables_quick_ref.json, figures_quick_ref.json "
+                    "and Fig. 10's rows in figures_paper_ref.json (and nothing else)")
     args = ap.parse_args()
+    if args.quick:
+        export_quick()
+        return
     if args.figures:
         export_figures()
         return

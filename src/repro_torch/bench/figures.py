@@ -1,10 +1,11 @@
 """The paper's figures on the port (counterpart of ``benchmarks/figures.py``):
 3 (slowdown against oversubscription), 4 and 11 (online against offline
-against ``ours`` top-1), 6 (single against multi model), 12 (the
+against ``ours`` top-1), 6 (single against multi model), 10 (the predictor
+zoo: transformer, LSTM, CNN and MLP under online training), 12 (the
 thrashing-term ablation), 13 (IPC against the prediction overhead) and 14
 (IPC against UVMSmart at 125% and 150%).
 
-    PYTHONPATH=src python -m repro_torch.bench.figures --only fig3 fig4 fig6 fig11 fig12 fig13 fig14 \\
+    PYTHONPATH=src python -m repro_torch.bench.figures --only fig3 fig4 fig6 fig10 fig11 fig12 fig13 fig14 \\
         [--scale paper] [--table PATH] [--fresh PATH] [--device cpu]
 
 Every cell runs on the card unless ``--device cpu`` is given, through the
@@ -13,9 +14,9 @@ pretrained tables and memo).  Each figure prints the reference's contract
 line (``name,us_per_call,derived``) and then one JSON object per row, with
 the reference's rows, keys, rounding and benchmark lists.  ``--fresh
 experiments/torch/init_paper_slots.npz`` starts the fresh slots and the
-``offline`` protocol's model from the JAX package's initial weights, as the
-comparison with its rows needs.  Fig. 10 (the predictor zoo) needs the
-``lstm``, ``cnn`` and ``mlp`` predictors, which are not ported.
+``offline`` protocol's model from the JAX package's exported initial
+weights; without it they are drawn as the JAX package draws them
+(:mod:`repro_torch.random`), which Fig. 10's four kinds always are.
 """
 from __future__ import annotations
 
@@ -26,7 +27,10 @@ import numpy as np
 
 from repro_torch.bench.tables import FEATURED, SCALE_PRESETS, Context, emit
 
-FIGURES = ("fig3", "fig4", "fig6", "fig11", "fig12", "fig13", "fig14")
+FIGURES = ("fig3", "fig4", "fig6", "fig10", "fig11", "fig12", "fig13", "fig14")
+#: Fig. 10's benchmarks and predictor kinds
+FIG10_BENCH = ["Hotspot", "ATAX", "StreamTriad"]
+FIG10_KINDS = ("transformer", "lstm", "cnn", "mlp")
 #: Fig. 3's oversubscription axis
 FIG3_OVERSUBS = (1.0, 1.1, 1.25, 1.5)
 #: Fig. 12's benchmarks: the four that thrash most
@@ -82,9 +86,19 @@ def fig6(ctx: Context) -> list[dict]:
     return rows
 
 
-def fig10(ctx: Context, benches=None):
-    raise NotImplementedError("Fig. 10 compares the lstm, cnn and mlp predictors (core/baselines_nn.py), which are "
-                              "not ported yet (ROADMAP A2)")
+def fig10(ctx: Context, benches=None) -> list[dict]:
+    """The predictor architecture zoo under online training: each kind's
+    ``online_single`` top-1 from fresh weights."""
+    t0 = time.time()
+    rows = []
+    for b in benches or FIG10_BENCH:
+        r = {"benchmark": b}
+        for kind in FIG10_KINDS:
+            r[kind] = round(ctx.protocol(b, "online_single", kind=kind).top1, 3)
+        r["derived"] = "transformer_best" if r["transformer"] >= max(r["lstm"], r["cnn"], r["mlp"]) - 0.02 else "see_row"
+        rows.append(r)
+    emit("fig10_model_zoo", rows, t0)
+    return rows
 
 
 def fig11(ctx: Context, benches=None) -> list[dict]:
@@ -170,7 +184,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--scale", choices=sorted(SCALE_PRESETS), default="paper")
     ap.add_argument("--table", default=None, help="the pretrained table for ours (a memo pickle or .npz)")
     ap.add_argument("--fresh", default=None, help="initial weights of the slots a table lacks and of the offline "
-                                                  "model (.npz; default: the port's own initialisation)")
+                                                  "model (.npz; default: drawn as the JAX package draws them)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     ctx = Context(args.scale, table=args.table, fresh=args.fresh, device=args.device)

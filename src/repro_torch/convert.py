@@ -14,10 +14,12 @@ writes: params, the AdamW moments (``opt_state``) where a slot has them and
 the LUCIR snapshot (``prev_params``) where it is set, so that a fine-tuned
 run starts from the same optimizer state as the JAX package's table.
 
-A table's fresh slots draw their weights from ``torch.Generator`` in the
-port and from ``jax.random`` in the JAX package.  To start a run from the
-JAX package's fresh weights, pass ``fresh``, a mapping slot -> params (see
-:func:`fresh_slots`), to :func:`table_from_blob` or :func:`fresh_table`.
+A table's fresh slots draw the JAX package's initial weights through
+:mod:`repro_torch.random` (equal to ``jax.random``'s but for a few float32
+normals in a hundred thousand, one ulp apart).  To start a run from
+weights exported by the JAX package itself, pass ``fresh``, a mapping slot
+-> params (see :func:`fresh_slots`), to :func:`table_from_blob` or
+:func:`fresh_table`.
 """
 from __future__ import annotations
 

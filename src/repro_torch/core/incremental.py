@@ -13,15 +13,14 @@ port of ``repro.core.incremental``.
 Every protocol measures top-1 accuracy on a group BEFORE the model trains on
 it (strictly causal evaluation).
 
-:class:`Trainer` evaluates and fine-tunes the transformer predictor on one
-device.  A fine-tune step is a forward, :func:`repro_torch.core.losses.
+:class:`Trainer` evaluates and fine-tunes a predictor of any registered
+``kind`` (``transformer``, or the LSTM, CNN and MLP baselines of
+``core/baselines_nn.py``) on one device.  A fine-tune step is a forward, :func:`repro_torch.core.losses.
 train_loss` (CE and the thrashing term through the ``thrash_ce`` kernel,
 LUCIR beside it), a backward (through the attention backward kernel on the
 card) and a functional AdamW update.  The JAX package scans a schedule
 padded to a power-of-two bucket of steps whose padding rows are no-ops; the
-port loops over the real rows only.  The LSTM, CNN and MLP baselines
-(``core/baselines_nn.py``) are not ported: ``kind`` must be
-``"transformer"``.
+port loops over the real rows only.
 """
 from __future__ import annotations
 
@@ -32,6 +31,7 @@ import torch
 
 from repro_torch.configs.predictor_paper import PredictorConfig
 from repro_torch.core import losses, predictor
+from repro_torch.core.baselines_nn import make_model
 from repro_torch.core.features import DeltaVocab, FeatureSet, FeatureStream
 from repro_torch.core.model_table import Entry, ModelTable
 from repro_torch.core.pattern import PatternClassifier
@@ -52,18 +52,20 @@ class TrainConfig:
 
 
 class Trainer:
-    """Evaluation and fine-tuning of the transformer predictor on one device."""
+    """Evaluation and fine-tuning of a predictor of a registered ``kind`` on
+    one device."""
 
     def __init__(self, pcfg: PredictorConfig, tcfg: TrainConfig, kind: str = "transformer",
                  device: str | torch.device = "cuda"):
-        if kind != "transformer":
-            raise NotImplementedError(f"predictor kind {kind!r} is not ported yet (only 'transformer')")
         self.pcfg, self.tcfg, self.kind = pcfg, tcfg, kind
         self.device = resolve_device(device)
+        self.init_fn, self.forward = make_model(pcfg, kind)
         self.opt = adamw.adamw(tcfg.lr, weight_decay=0.01)
 
     def new_params(self, seed: int = 0) -> dict:
-        return predictor.init(seed, self.pcfg, self.device)
+        """The JAX package's ``new_params(seed)``: its initial weights for
+        ``jax.random.key(seed)``."""
+        return self.init_fn(seed, self.device)
 
     def _eval_schedule(self, n: int) -> np.ndarray:
         """Batch-index rows for one group: consecutive batches of
@@ -91,7 +93,7 @@ class Trainer:
         pidx = torch.tensor(self._eval_schedule(n), device=self.device)
         correct, pred = [], []
         for idx in pidx:
-            logits, _ = predictor.forward(params, {k: v[idx] for k, v in feats.items()}, self.pcfg)
+            logits, _ = self.forward(params, {k: v[idx] for k, v in feats.items()})
             p = predictor.mask_inactive(logits, n_active).argmax(dim=-1)
             pred.append(p)
             correct.append(p == labels[idx])
@@ -109,7 +111,7 @@ class Trainer:
         per lane; an empty lane gives empty arrays.  Every lane runs through
         :meth:`evaluate` in turn, which is what the JAX package does below
         ``MIN_VMAP_LANES`` lanes a bucket; stacking a bucket into one
-        launch per kernel belongs with ``run_ours_many`` (ROADMAP A2)."""
+        launch per kernel belongs with ``run_ours_many`` (ROADMAP A5)."""
         return [self.evaluate(p, fs, na) for p, fs, na in zip(params_list, fs_list, n_active_list)]
 
     def train_group_many(self, entries: list, fs_list: list, n_active_list: list, *, in_et_list=None,
@@ -120,7 +122,7 @@ class Trainer:
         optimizer state first, then train one by one in the JAX package's
         bucket order (sample bucket, step bucket, LUCIR eligibility, thrash
         flags present).  As in :meth:`evaluate_many`, one launch per bucket
-        waits for ``run_ours_many`` (ROADMAP A2)."""
+        waits for ``run_ours_many`` (ROADMAP A5)."""
         tc = self.tcfg
         in_et_list = in_et_list if in_et_list is not None else [None] * len(entries)
         buckets: dict = {}
@@ -147,7 +149,7 @@ class Trainer:
             return None
         feats, _ = self._stage(fs)
         idx = torch.as_tensor(np.asarray(idx), device=self.device)
-        return predictor.forward(prev_params, {k: v[idx] for k, v in feats.items()}, self.pcfg)[1]
+        return self.forward(prev_params, {k: v[idx] for k, v in feats.items()})[1]
 
     def _train_schedule(self, n: int, rng) -> np.ndarray:
         """Batch-index rows of one group's fine-tune (per-epoch permutation,
@@ -170,7 +172,7 @@ class Trainer:
         keys = list(params)
         with torch.enable_grad():
             leaves = [params[k].detach().requires_grad_(True) for k in keys]
-            logits, f = predictor.forward(dict(zip(keys, leaves)), batch, self.pcfg)
+            logits, f = self.forward(dict(zip(keys, leaves)), batch)
             loss = losses.train_loss(logits, f, labels, n_active=n_active, f_old=f_old, in_et=in_et, n_et=n_et,
                                      lam=self.pcfg.lucir_lambda, mu=self.pcfg.thrash_mu)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -205,7 +207,7 @@ class Trainer:
                 f_old = None
                 if use_l:
                     with torch.no_grad():
-                        f_old = predictor.forward(entry.prev_params, batch, self.pcfg)[1]
+                        f_old = self.forward(entry.prev_params, batch)[1]
                 bet, n_et = (None, 0) if et is None else (et[bidx], int(np.count_nonzero(et_np[row])))
                 params, opt_state, _ = self._train_step(params, opt_state, batch, labels[bidx], n_active,
                                                         entry.step + i, f_old, bet, n_et)
@@ -241,9 +243,9 @@ def run_protocol(
 ) -> RunResult:
     """One prediction-accuracy protocol run (strictly causal top-1).
     ``offline`` trains one model from ``init_params`` (a flat dict of
-    tensors on ``device``: e.g. the JAX package's initial weights for
-    ``tcfg.seed``), or from the port's own initialisation for that seed; the
-    other modes start each slot from ``table`` or a fresh one."""
+    tensors on ``device``), or from the JAX package's initial weights for
+    ``tcfg.seed``; the other modes start each slot from ``table`` or a
+    fresh one.  ``kind`` is a registered predictor architecture."""
     assert mode in ("online_single", "online_multi", "ours", "offline")
     trainer = Trainer(pcfg, tcfg, kind, device)
     vocab = DeltaVocab(pcfg.delta_vocab)

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from repro_torch.configs.predictor_paper import BlockConfig, PredictorConfig
 from repro_torch.models import dense
 from repro_torch.models import layers as L
-from repro_torch.models.params import Spec, init_params, prefix, subtree
+from repro_torch.models.params import Spec, init_params_jax, prefix, subtree
 
 
 def _block_cfg(cfg: PredictorConfig) -> BlockConfig:
@@ -52,7 +52,8 @@ def param_specs(cfg: PredictorConfig) -> dict[str, Spec]:
 
 
 def init(seed: int, cfg: PredictorConfig, device="cuda", dtype=torch.float32):
-    return init_params(seed, param_specs(cfg), dtype, device)
+    """The JAX package's ``init(jax.random.key(seed), cfg)``."""
+    return init_params_jax(seed, param_specs(cfg), dtype, device)
 
 
 def _run_block(params, pre, x, cfg: PredictorConfig):

@@ -2,10 +2,12 @@
 
 Parameters are a flat ``dict[str, Tensor]`` under the JAX package's key
 names (``"reg/attn/wq"``, ``"embed/page"``, ...), so weights carry across
-by name with no renaming.  :func:`init_params` draws from a
-``torch.Generator``; its numbers differ from ``jax.random``'s.
-:func:`numpy_params` draws from ``np.random.default_rng`` instead, so the
-JAX package and the port can be handed the same numbers.
+by name with no renaming.  :func:`init_params_jax` draws the JAX package's
+own initial weights (``init_params(jax.random.key(seed), specs)``) through
+:mod:`repro_torch.random`; :func:`init_params` draws from a
+``torch.Generator``, whose numbers differ from ``jax.random``'s.
+:func:`numpy_params` draws from ``np.random.default_rng``, so the JAX
+package and the port can be handed the same numbers.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import random as jrandom
 from repro_torch.device import resolve_device
 
 
@@ -64,6 +67,26 @@ def init_params(seed: int, specs: ParamSpecs, dtype=torch.float32, device="cuda"
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     return {path: init_one(gen, specs[path].check(path), dtype, device) for path in sorted(specs)}
+
+
+def init_params_jax(seed: int, specs: ParamSpecs, dtype=torch.float32, device="cuda") -> Params:
+    """The JAX package's ``init_params(jax.random.key(seed), specs)``: one
+    ``split`` of the key over the specs in sorted-name order, each drawn by
+    its initialiser (``normal``/``lecun``: the float32 std times
+    ``jax.random.normal``).  Drawn on the host, then moved to ``device``."""
+    device = resolve_device(device)
+    keys = jrandom.split(jrandom.key(seed), len(specs))
+    out = {}
+    for k, path in zip(keys, sorted(specs)):
+        spec = specs[path].check(path)
+        if spec.init == "zeros":
+            x = torch.zeros(spec.shape, dtype=torch.float32)
+        elif spec.init == "ones":
+            x = torch.ones(spec.shape, dtype=torch.float32)
+        else:
+            x = torch.tensor(_std(spec), dtype=torch.float32) * jrandom.normal(k, spec.shape)
+        out[path] = x.to(dtype=dtype, device=device)
+    return out
 
 
 def numpy_params(specs: ParamSpecs, seed: int) -> dict[str, np.ndarray]:

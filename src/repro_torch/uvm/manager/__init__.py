@@ -1,7 +1,7 @@
 """`repro_torch.uvm.manager` — the streaming oversubscription-management API
 (port of ``repro.uvm.manager``: the single-workload manager and the
-multi-tenant ``TenantMux``; the health machine, snapshots, chaos injection
-and QoS budgets are not ported yet)."""
+multi-tenant ``TenantMux`` with its QoS budgets; the health machine,
+snapshots and chaos injection are not ported yet)."""
 from repro_torch.uvm.manager.core import (
     INTERVAL_FAULTS,
     Actions,

@@ -36,9 +36,15 @@ update one table (the paper's single 18KB budget, Section IV-D) whose flush
 cadence the mux owns.  Tenants share one :class:`~repro_torch.core.
 incremental.Trainer`, never model state.
 
-Not ported (ROADMAP A3): QoS budgets (``qos=``), snapshots (``state``,
-``restore``) and the component registry (a non-builtin classifier or
-frequency table); each raises ``NotImplementedError``.
+``qos`` attaches a :class:`~repro_torch.uvm.qos.BudgetController`: every
+observed batch claims its tenant's blocks (first-toucher ownership), every
+feedback round feeds the tenant's thrash rate into the elastic rebalance,
+and :meth:`TenantMux.evict_pref` compiles the budgets into the simulator's
+leading victim key (a fourth ``evict_select`` key).
+
+Not ported (ROADMAP A4): snapshots (``state``, ``restore``) and the
+component registry's classifiers and frequency tables (a non-builtin one);
+each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -65,7 +71,7 @@ _UNSET = object()
 
 
 def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP A3)")
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP A4)")
 
 
 @dataclasses.dataclass
@@ -76,8 +82,9 @@ class MuxActions:
     ``counters`` is the combined dense prediction-frequency export (an int32
     tensor on the mux's device), ``None`` when no tenant's prefetch gate
     opened this round.  ``pre_evict_blocks`` round-robins the tenants'
-    advisory rankings.  ``budgets`` is always ``None``: QoS budgets are not
-    ported."""
+    advisory rankings.  ``budgets`` is the QoS capacity partition this round
+    was observed under (tenant -> blocks), ``None`` without a budget
+    controller."""
 
     per_tenant: dict
     prefetch_blocks: np.ndarray
@@ -88,6 +95,10 @@ class MuxActions:
     @property
     def patterns(self) -> dict:
         return {k: a.pattern for k, a in self.per_tenant.items()}
+
+
+def _thrash_rate(was_evicted) -> float:
+    return float(np.mean(was_evicted)) if was_evicted is not None and len(was_evicted) else 0.0
 
 
 def _stable_unique(parts: list[np.ndarray]) -> np.ndarray:
@@ -156,6 +167,8 @@ class TenantMux:
     unseen tag by building its manager on first contact, ``False`` makes it
     a ``KeyError``.  ``tables`` seeds each tenant's model table: a dict
     keyed by tenant, or one Section V-A master that every tenant clones.
+    ``qos`` attaches a :class:`~repro_torch.uvm.qos.BudgetController`
+    (``None``: one shared capacity pool).
     """
 
     def __init__(
@@ -170,8 +183,6 @@ class TenantMux:
         qos=None,
         device: str | torch.device = "cuda",
     ):
-        if qos is not None:
-            raise _unported("TenantMux QoS budgets (qos=, uvm/qos)")
         if (cfg.classifier, cfg.freq_table) != ("dfa", "setassoc"):
             raise _unported(f"the component registry (classifier {cfg.classifier!r}, freq_table "
                             f"{cfg.freq_table!r}; only 'dfa' / 'setassoc' are builtin)")
@@ -182,7 +193,7 @@ class TenantMux:
         self._tables = tables
         self.trainer = trainer if trainer is not None else Trainer(cfg.predictor, cfg.train, cfg.kind, self.device)
         self._shared_freq = PredictionFrequencyTable(device=self.device) if shared_freq_table else None
-        self.qos = None
+        self.qos = qos
         self.managers: dict = {}
         # released tenants' final counts, so departure keeps them in the views
         self._departed: dict = {}
@@ -221,7 +232,8 @@ class TenantMux:
     def release(self, key) -> None:
         """Retire a departed tenant: drop its manager so its stale counters
         leave :meth:`_combined_dense`, keeping its accuracy and model counts
-        for the result views.  Idempotent; a re-appearing tag is re-admitted
+        for the result views, and return its QoS claim so budgets rebalance
+        to the live tenants.  Idempotent; a re-appearing tag is re-admitted
         fresh."""
         m = self.managers.pop(key, None)
         if m is not None:
@@ -230,6 +242,8 @@ class TenantMux:
                 "top1": m.top1, "n_predictions": m.n_predictions,
                 "n_classes": m.n_classes, "n_models": m.n_models,
             }
+        if self.qos is not None:
+            self.qos.release(key)
         if self._round is not None:
             self._round = [r for r in self._round if r[0] != key] or None
 
@@ -338,6 +352,9 @@ class TenantMux:
         batch = batch if isinstance(batch, FaultBatch) else FaultBatch(np.asarray(batch))
         split = self._split(batch)
         self._round = [(k, idx, len(idx)) for k, idx, _ in split]
+        if self.qos is not None:
+            for k, _idx, sub in split:
+                self.qos.observe_blocks(k, np.unique(np.asarray(sub.page, np.int64) // self.cfg.pages_per_block))
         return [(k, self.tenant(k).observe_begin(sub)) for k, idx, sub in split]
 
     def observe_finish(self, results: list) -> MuxActions:
@@ -359,6 +376,7 @@ class TenantMux:
             prefetch_blocks=_stable_unique([a.prefetch_blocks for a in per_tenant.values()]),
             counters=self._combined_dense() if warm_any else None,
             pre_evict_blocks=_round_robin([a.pre_evict_blocks for a in per_tenant.values()]),
+            budgets=dict(self.qos.budgets) if self.qos is not None else None,
         )
 
     def feedback_begin(self, outcomes: Outcomes, *, tenant=_UNSET) -> list[tuple[object, TrainRequest | None]]:
@@ -370,6 +388,9 @@ class TenantMux:
             # the tenant's slot in a pending round is closed now
             if self._round is not None:
                 self._round = [r for r in self._round if r[0] != tenant] or None
+            if self.qos is not None:
+                self.qos.observe_pressure(tenant, _thrash_rate(outcomes.was_evicted))
+                self.qos.step()
             self._last_feedback = out
             return out
         if self._round is None:
@@ -379,7 +400,12 @@ class TenantMux:
         for k, idx, _n in self._round:
             sub = Outcomes(was_evicted=None if we is None else we[idx],
                            fault_count=outcomes.fault_count)  # the global device clock
+            # the tenant's thrash rate this round is the budgets' pressure signal
+            if self.qos is not None:
+                self.qos.observe_pressure(k, _thrash_rate(sub.was_evicted))
             out.append((k, self.managers[k].feedback_begin(sub)))
+        if self.qos is not None:
+            self.qos.step()
         self._round = None
         self._last_feedback = out
         return out
@@ -431,10 +457,15 @@ class TenantMux:
             out = d if out is None else torch.maximum(out, d)
         return out
 
-    def evict_pref(self, resident) -> None:
-        """The QoS leading victim key: ``None`` without a budget controller
-        (QoS is not ported)."""
-        return None
+    def evict_pref(self, resident: torch.Tensor) -> torch.Tensor | None:
+        """The QoS leading victim key for ``resident`` (the simulator's bool
+        residency mask), an int32 tensor on the mux's device; ``None``
+        without a budget controller (the three-key program).  The budgets
+        live on the host, so this reads the mask back once per call."""
+        if self.qos is None:
+            return None
+        pref = self.qos.evict_pref(resident.cpu().numpy())
+        return torch.tensor(pref, device=self.device)
 
     # -- result views ----------------------------------------------------------
 

@@ -17,15 +17,15 @@ Section V-F) runs through a :class:`~repro_torch.uvm.manager.TenantMux` by
 default: one pipeline per tenant, their combined prefetches and counters
 staged into one simulator over the merged device; ``multi_tenant=False``
 drives it through one merged manager instead (the paper's baseline).  The
-lockstep ``run_ours_many`` is not ported (ROADMAP A2).
+lockstep ``run_ours_many`` is not ported (ROADMAP A5).
 
 Model, frequency table and simulator state live on the device (``"cuda"``
 unless the caller passes ``device="cpu"``).  Pretrained tables come from
 the JAX package's memo pickles (:func:`load_pretrain_memo`) or from the
 ``.npz`` written by ``scripts/export_torch_reference.py``
 (:func:`load_pretrained`), or are trained here by :func:`pretrain_table`
-(Section V-A; the JAX package memoises its result on disk, the port does
-not).
+(Section V-A), which reads the JAX package's memo of the same recipe when
+``memo_dir`` holds it and never writes one.
 """
 from __future__ import annotations
 
@@ -66,7 +66,7 @@ class LearnedRunResult:
     #: per-tenant {pages_thrashed, faults, accesses} (tenant-tagged runs
     #: only), each event counted for the tenant of the access that caused it
     per_tenant_stats: dict | None = None
-    #: final per-tenant QoS block budgets (QoS is not ported: always None)
+    #: final per-tenant QoS block budgets (budgeted mux runs only)
     budgets: dict | None = None
 
     def ipc(self, pred_overhead_us: float = 1.0, n_accesses: int | None = None) -> float:
@@ -130,7 +130,8 @@ def load_pretrained(path: str | Path, pcfg: PredictorConfig, device: str | torch
     """A pretrained table from a memo pickle or an exported ``.npz``.  Slots
     it lacks start from ``fresh[slot]`` where given (a mapping slot ->
     params, e.g. :func:`repro_torch.convert.fresh_slots` of the JAX
-    package's initial weights), else from the port's own initialisation."""
+    package's exported initial weights), else from ``predictor.init``'s
+    draws of them."""
     if Path(path).suffix == ".npz":
         return convert.table_from_blob(convert.blob_from_npz(path), pcfg, device, fresh)
     return load_pretrain_memo(path, pcfg, device, fresh)
@@ -144,6 +145,7 @@ def pretrain_table(
     kind: str = "transformer",
     target_acc: float = 0.85,
     max_rounds: int = 4,
+    memo_dir: str | Path | None = None,
     device: str | torch.device = "cuda",
 ) -> ModelTable:
     """Section V-A: build a per-pattern corpus from (different-input) runs of
@@ -151,7 +153,17 @@ def pretrain_table(
     reasonable, to hide the initial training latency.  Each trace's first
     half is cut into groups; every round evaluates and then fine-tunes each
     group's pattern model, until the mean corpus accuracy reaches
-    ``target_acc`` or ``max_rounds`` rounds have run."""
+    ``target_acc`` or ``max_rounds`` rounds have run.
+
+    ``memo_dir``: a directory of the JAX package's pretrain memos
+    (``experiments/cache/``); when it holds ``pretrain_<key>.pkl`` for this
+    recipe (:func:`_pretrain_cache_key`), that table is loaded instead of
+    trained.  The port never writes a memo: the directory is the JAX
+    package's, which would load a port-trained table under its key."""
+    if memo_dir is not None:
+        path = Path(memo_dir) / f"pretrain_{_pretrain_cache_key(corpus, pcfg, tcfg, kind, target_acc, max_rounds)}.pkl"
+        if path.exists():
+            return load_pretrain_memo(path, pcfg, device)
     trainer = Trainer(pcfg, tcfg, kind, device)
     table = ModelTable(lambda s: trainer.new_params(s), n_slots=tcfg.table_slots)
     classifier = PatternClassifier()
@@ -246,7 +258,10 @@ def mux_for(
     V-F): one manager per tenant over the merged geometry (tenants hold
     disjoint page ranges of the shared device, so every pipeline sees global
     page ids).  ``table`` is a Section V-A master each tenant clones.
-    ``qos`` raises ``NotImplementedError`` (ROADMAP A3)."""
+    ``qos`` opts the mux into per-tenant capacity partitioning: a
+    :class:`~repro_torch.uvm.api.specs.QosSpec` (tiers keyed by the trace's
+    ``tenant_names``, resolved here against its geometry) or a built
+    :class:`~repro_torch.uvm.qos.BudgetController`."""
     if trace.tenant is None:
         raise ValueError(f"trace {trace.name!r} has no tenant tags; use manager_for() instead")
     cfg = _manager_config(
@@ -256,6 +271,8 @@ def mux_for(
         reclass_interval=reclass_interval, reclass_hysteresis=reclass_hysteresis,
         health=health,
     )
+    if qos is not None and hasattr(qos, "controller"):  # a QosSpec
+        qos = qos.controller(cfg.capacity, cfg.n_blocks, trace.tenant_names)
     tenants = [int(t) for t in np.unique(trace.tenant)]
     return TenantMux(cfg, tenants, shared_freq_table=shared_freq_table, auto_create=False, tables=table,
                      trainer=trainer, qos=qos, device=resolve_device(device))
@@ -279,23 +296,32 @@ def _apply_actions(state: S.SimState, actions, nb: int, cap: int, evict_pref=Non
 
 
 def _result(mgr, state: S.SimState, n_accesses: int, per_tenant_stats: dict | None = None) -> LearnedRunResult:
+    is_mux = isinstance(mgr, TenantMux)
     return LearnedRunResult(
         S.state_stats(state), mgr.top1, mgr.n_predictions, mgr.n_classes,
         mgr.n_models, mgr.per_group, mgr.warm_top1, n_accesses,
-        per_tenant_top1=mgr.per_tenant_top1 if isinstance(mgr, TenantMux) else None,
+        per_tenant_top1=mgr.per_tenant_top1 if is_mux else None,
         per_tenant_stats=per_tenant_stats,
+        budgets={str(k): v for k, v in mgr.qos.budgets.items()} if is_mux and mgr.qos is not None else None,
     )
 
 
 class _TenantLedger:
-    """Per-tenant fairness accounting for one tenant-tagged trace: each
-    group's thrash and fault events go to the tenant of the access that
-    caused them.  (The reference also releases a departed tenant from the
-    mux, but only under QoS budgets, which are not ported.)"""
+    """Per-tenant fairness accounting and QoS departures for one
+    tenant-tagged trace: each group's thrash and fault events go to the
+    tenant of the access that caused them, and (budgeted runs only) a
+    tenant is released from the mux once its last access is behind us, so
+    its counters and budget slice rebalance to the tenants still running."""
 
-    def __init__(self, trace: Trace):
+    def __init__(self, trace: Trace, mgr):
+        tn = np.asarray(trace.tenant)
         self.trace = trace
-        self.stats = {int(t): {"pages_thrashed": 0, "faults": 0, "accesses": 0} for t in np.unique(trace.tenant)}
+        self.mgr = mgr if isinstance(mgr, TenantMux) else None
+        self.stats = {int(t): {"pages_thrashed": 0, "faults": 0, "accesses": 0} for t in np.unique(tn)}
+        # releasing is observable (combined counters shrink), so only a
+        # budgeted run does it, as in the reference
+        self.departs = ({int(t): int(np.max(np.nonzero(tn == t)[0])) for t in np.unique(tn)}
+                        if self.mgr is not None and self.mgr.qos is not None else {})
 
     def account(self, g0: int, g1: int, outs: dict) -> None:
         """``outs`` is ``run_segment``'s per-access outputs, already host
@@ -309,6 +335,10 @@ class _TenantLedger:
             d["pages_thrashed"] += int(th[m].sum()) * PAGES_PER_BLOCK
             d["faults"] += int(fa[m].sum())
             d["accesses"] += int(m.sum())
+        if g1 < len(self.trace):  # keep final-group tenants admitted
+            for t in [t for t, last in self.departs.items() if last < g1]:
+                del self.departs[t]
+                self.mgr.release(t)
 
     def result(self) -> dict:
         return {str(t): dict(d) for t, d in self.stats.items()}
@@ -340,16 +370,18 @@ def run_ours(
     ``multi_tenant=False`` (one manager over the merged stream, the Section
     V-F baseline); ``shared_freq_table`` gives the mux's tenants one
     frequency table.  Either way the result carries each tenant's
-    ``per_tenant_stats``.  ``qos`` raises ``NotImplementedError`` (ROADMAP
-    A3)."""
+    ``per_tenant_stats``.  ``qos`` (a :class:`~repro_torch.uvm.api.specs.
+    QosSpec` or a built :class:`~repro_torch.uvm.qos.BudgetController`)
+    opts the mux run into per-tenant capacity partitioning: the budgets
+    become the leading victim key, rebalance from observed pressure, and a
+    tenant whose trace is exhausted is released; the result carries the
+    final ``budgets``."""
     pcfg = pcfg or PredictorConfig()
     tcfg = tcfg or TrainConfig()
     if multi_tenant is None:
         multi_tenant = trace.tenant is not None
-    if qos is not None:
-        if not multi_tenant:
-            raise ValueError("qos= requires a tenant-tagged multi-tenant run")
-        raise NotImplementedError("run_ours(qos=) needs the QoS budgets (uvm/qos), not ported yet (ROADMAP A3)")
+    if qos is not None and not multi_tenant:
+        raise ValueError("qos= requires a tenant-tagged multi-tenant run")
     if manager is not None:
         mgr = manager
     elif multi_tenant:
@@ -358,7 +390,7 @@ def run_ours(
             table=table, use_thrash_term=use_thrash_term, use_lucir=use_lucir,
             shared_freq_table=shared_freq_table,
             reclass_interval=reclass_interval, reclass_hysteresis=reclass_hysteresis,
-            health=health, device=device,
+            health=health, qos=qos, device=device,
         )
     else:
         mgr = manager_for(
@@ -371,7 +403,7 @@ def run_ours(
     state = S.init_state(nb, mgr.device)
     blocks = trace.block.astype(np.int32)
     nxt = S.next_use_for(trace)
-    ledger = _TenantLedger(trace) if trace.tenant is not None else None
+    ledger = _TenantLedger(trace, mgr) if trace.tenant is not None else None
     n = len(trace)
     # the manager's own schedule sets the batch cadence
     G = mgr.cfg.train.group_size

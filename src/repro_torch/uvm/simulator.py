@@ -9,8 +9,11 @@ granularity; "pages thrashed" are blocks x 16 pages.
 
 Eviction policies (Section II-C / IV-D): ``lru``, ``belady`` (MIN oracle
 from the precomputed next-use stream), ``hpe`` (page-set chain + LRU) and
-``learned`` (page-set chain + prediction-frequency table).  ``random``
-(whose victims are JAX threefry draws) is not ported.  Prefetchers:
+``learned`` (page-set chain + prediction-frequency table) and ``random``
+(uniform random resident block: the JAX package's ``randint(fold_in(key,
+t), (NB,), 0, 1 << 30)`` per step, drawn on the host by
+:mod:`repro_torch.random` for every event of a segment at once and staged
+on the device in one copy).  Prefetchers:
 ``demand`` (``none`` is its alias; the learned runtime stages its own
 prefetches through :func:`apply_prefetch`) and ``tree``, NVIDIA's
 tree-based neighbourhood prefetcher: on a fault, every [2, 4, 8, 16,
@@ -47,6 +50,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import random as jrandom
 from repro_torch.device import resolve_device
 from repro_torch.kernels.evict_select import evict_select
 from repro_torch.util import pow2_bucket
@@ -56,7 +60,7 @@ CHUNK_BLOCKS = 32  # 2MB chunk = 32 x 64KB blocks
 INTERVAL = 64  # page-set-chain interval, in faults (same as HPE)
 NO_USE = np.int32(2**31 - 1)
 
-POLICIES = ("lru", "belady", "hpe", "learned")
+POLICIES = ("lru", "random", "belady", "hpe", "learned")
 PREFETCHERS = ("demand", "tree", "none")
 TREE_SIZES = (2, 4, 8, 16, CHUNK_BLOCKS)
 
@@ -79,6 +83,7 @@ class SimState:
     faults: torch.Tensor  # int32 scalar, far-fault events
     zero_copy: torch.Tensor  # int32 scalar, remote accesses to pinned blocks
     time: torch.Tensor  # int32 scalar
+    key: torch.Tensor  # int64 (2,) on the host: the random policy's PRNG key data
 
     def clone(self) -> "SimState":
         return SimState(*(getattr(self, f.name).clone() for f in dataclasses.fields(self)))
@@ -88,7 +93,7 @@ class SimState:
         return self.resident.device
 
 
-def init_state(n_blocks: int, device: str | torch.device = "cuda") -> SimState:
+def init_state(n_blocks: int, device: str | torch.device = "cuda", seed: int = 0) -> SimState:
     device = resolve_device(device)
     z = lambda: torch.zeros((), dtype=_I32, device=device)
     full = lambda v: torch.full((n_blocks,), int(v), dtype=_I32, device=device)
@@ -101,7 +106,7 @@ def init_state(n_blocks: int, device: str | torch.device = "cuda") -> SimState:
         next_use=full(NO_USE),
         freq=full(-1),
         occupancy=z(), fault_count=z(), thrash_events=z(), migrations=z(), faults=z(), zero_copy=z(),
-        time=z(),
+        time=z(), key=jrandom.key(seed),
     )
 
 
@@ -272,24 +277,40 @@ def _learned_keys(state: SimState, interval_now):
 
 POLICY_KEYS = {"lru": _lru_keys, "belady": _belady_keys, "hpe": _hpe_keys, "learned": _learned_keys}
 
+#: events per host batch of the random policy's draws
+_RANDOM_CHUNK = 2048
+
+
+def _random_keys(state: SimState, t_now: np.ndarray) -> torch.Tensor:
+    """The random policy's victim key of each step at times ``t_now``
+    (host ints): ``randint(fold_in(key, t), (NB,), 0, 1 << 30)`` per step,
+    drawn on the host in batches and staged on the state's device, int32
+    ``(len(t_now), NB)``."""
+    nb = state.resident.shape[0]
+    t = torch.as_tensor(np.asarray(t_now, np.int64))
+    rows = [jrandom.randint(jrandom.fold_in(state.key, t[i : i + _RANDOM_CHUNK]), (nb,), 0, 1 << 30)
+            for i in range(0, len(t), _RANDOM_CHUNK)]
+    return torch.cat(rows).to(state.device) if rows else torch.zeros((0, nb), dtype=_I32, device=state.device)
+
 
 def _check_cell(policy: str, prefetch: str = "demand") -> None:
-    if policy not in POLICY_KEYS:
+    if policy not in POLICIES:
         raise NotImplementedError(f"eviction policy {policy!r} is not ported (ported: {POLICIES})")
     if prefetch not in PREFETCHERS:
         raise NotImplementedError(f"prefetcher {prefetch!r} is not ported (ported: {PREFETCHERS})")
 
 
 def _evict_fit(state: SimState, capacity: int, policy: str, protect: int | None, interval_now,
-               evict_pref=None) -> None:
+               evict_pref=None, rand: torch.Tensor | None = None) -> None:
     """Evict lowest-priority resident blocks until occupancy <= capacity, in
     place.  One victim-selection call takes all
     ``min(max(occ - capacity, 0), |candidates|)`` victims; ``evict_pref``
-    (int32 per block, optional) is the leading key."""
+    (int32 per block, optional) is the leading key; ``rand`` is the random
+    policy's key for this step (:func:`_random_keys`)."""
     cand = state.resident & ~state.pinned
     if protect is not None:
         cand[protect] = False
-    keys = POLICY_KEYS[policy](state, interval_now)
+    keys = (rand,) if policy == "random" else POLICY_KEYS[policy](state, interval_now)
     if evict_pref is not None:
         keys = (evict_pref,) + tuple(keys)
     n_evict = torch.minimum(torch.clamp(state.occupancy - capacity, min=0), cand.sum(dtype=_I32))
@@ -363,10 +384,12 @@ def _scan_events(state: SimState, ev: Events, capacity: int, policy: str, evict_
     fault?).  Every value stays on the device; the caller syncs once."""
     dev = state.device
     t0 = state.time.clone()
+    # the random policy's keys depend on each event's time: one host read
+    rand = _random_keys(state, int(t0) + ev.dt) if policy == "random" else None
     faults, thrashes, was_ev = [], [], []
     pfault = torch.zeros((), dtype=torch.bool, device=dev)
-    for b, nx, d, r, sd in zip(ev.blk.tolist(), ev.nxt.tolist(), ev.dt.tolist(), ev.rl.tolist(),
-                               ev.stride.tolist()):
+    for i, (b, nx, d, r, sd) in enumerate(zip(ev.blk.tolist(), ev.nxt.tolist(), ev.dt.tolist(), ev.rl.tolist(),
+                                              ev.stride.tolist())):
         t_first = t0 + d
         t_last = t_first + (r - 1) * sd
         is_pinned = state.pinned[b].clone()
@@ -393,7 +416,7 @@ def _scan_events(state: SimState, ev: Events, capacity: int, policy: str, evict_
         # land in the NEXT interval (the reference updates per access)
         state.last_interval[b] = torch.div(fc_after, INTERVAL, rounding_mode="floor") if r > 1 else interval_now
         state.next_use[b] = nx
-        _evict_fit(state, capacity, policy, b, interval_now, evict_pref)
+        _evict_fit(state, capacity, policy, b, interval_now, evict_pref, None if rand is None else rand[i])
         state.time.copy_(t_last + 1)
         faults.append(fault)
         thrashes.append(thrash)
@@ -481,7 +504,8 @@ def apply_prefetch(state: SimState, blocks_mask: torch.Tensor, *, capacity: int,
     st.migrations += n_new
     st.last_interval = torch.where(newly, interval_now, st.last_interval)
     st.last_access = torch.where(newly, st.time, st.last_access)
-    _evict_fit(st, int(capacity), policy, None, interval_now, evict_pref)
+    rand = _random_keys(st, [int(st.time)])[0] if policy == "random" else None
+    _evict_fit(st, int(capacity), policy, None, interval_now, evict_pref, rand)
     return st
 
 
@@ -515,14 +539,15 @@ def run(
     prefetch: str = "tree",
     oversubscription: float = 1.25,
     state: SimState | None = None,
+    seed: int = 0,
     device: str | torch.device = "cuda",
 ) -> SimResult:
     """Run a full trace under (policy x prefetch) at an oversubscription
     level, from ``state`` (on its own device) or a fresh state on
-    ``device``."""
+    ``device`` (``seed``: the random policy's key)."""
     _check_cell(policy, prefetch)
     if state is None:
-        state = init_state(bucket_blocks(trace.n_blocks), device)
+        state = init_state(bucket_blocks(trace.n_blocks), device, seed)
     st, outs = run_segment(
         state, trace.block.astype(np.int32), next_use_for(trace),
         capacity=capacity_for(trace.n_blocks, oversubscription), policy=policy, prefetch=prefetch,
@@ -531,13 +556,14 @@ def run(
     return SimResult(st, outs["fault"], outs["thrash"], outs["was_evicted"])
 
 
-def run_batch(trace: Trace, cells: list[tuple[str, str, float]], *,
-              device: str | torch.device = "cuda") -> list[dict]:
+def run_batch(trace: Trace, cells: list[tuple[str, str, float]], *, seed: int = 0,
+              seeds: list[int] | None = None, device: str | torch.device = "cuda") -> list[dict]:
     """Many (policy, prefetch, oversubscription) cells over one trace; one
     stats dict per cell.  The cells run one after another, each with its
     own rerun on plain run-length events when a periodic aggregate faults:
     the reference's batched lanes give each cell the counters of its own
-    :func:`run`."""
+    :func:`run`.  ``seeds`` (one per cell, else ``seed`` for every cell)
+    key the random policy."""
     for policy, prefetch, _ in cells:
         _check_cell(policy, prefetch)
     device = resolve_device(device)
@@ -545,8 +571,8 @@ def run_batch(trace: Trace, cells: list[tuple[str, str, float]], *,
     nxt = next_use_for(trace)
     nb = bucket_blocks(trace.n_blocks)
     states = []
-    for policy, prefetch, oversub in cells:
-        st, _ = run_segment(init_state(nb, device), blocks, nxt, capacity=capacity_for(trace.n_blocks, oversub),
+    for (policy, prefetch, oversub), sd in zip(cells, seeds if seeds is not None else [seed] * len(cells)):
+        st, _ = run_segment(init_state(nb, device, sd), blocks, nxt, capacity=capacity_for(trace.n_blocks, oversub),
                             policy=policy, prefetch=prefetch, n_valid=trace.n_blocks, want_outs=False)
         states.append(st)
     return [state_stats(st) for st in states]

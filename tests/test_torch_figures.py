@@ -18,8 +18,9 @@ memos, moments and all, handed across by ``_table_to_host`` and
   its own way and the online loop feeds its predictions back, C3 of
   ROADMAP.md).  At this size every row lands equal.
 * ``protocol_chain`` fine-tunes one table across its links;
-  ``ours(use_thrash_term=False)`` is memoised apart from the default; Fig.
-  10 raises.
+  ``ours(use_thrash_term=False)`` is memoised apart from the default.
+* Fig. 10's four predictor kinds, each from the fresh weights its package
+  draws: rows within the same limits.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import benchmarks.common as BC
 import benchmarks.figures as JFIG
@@ -59,6 +61,16 @@ SHORT = ["ATAX", "Hotspot"]  # Figs. 4, 11, 13 and 14's (Hotspot opens the prefe
 ACC_ATOL, STATS_RTOL = 0.02, 0.4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """This module's tensors are small: one intra-op thread keeps its work
+    from oversubscribing the cores that parallel test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_table(path) -> JModelTable:
     blob = JR._load_pretrain_blob(path)
     trainer = JI.Trainer(JC.SMOKE, JI.TrainConfig(**TRAIN))
@@ -88,8 +100,9 @@ def both(tmp_path_factory):
     BC.OUT_DIR = tmp_path_factory.mktemp("figures")  # the reference's CSVs
     try:
         rows = {}
-        for name, kw in (("fig3", {}), ("fig4", {"benches": SHORT}), ("fig6", {}), ("fig11", {"benches": SHORT}),
-                         ("fig12", {}), ("fig13", {"benches": SHORT}), ("fig14", {"benches": SHORT})):
+        for name, kw in (("fig3", {}), ("fig4", {"benches": SHORT}), ("fig6", {}), ("fig10", {"benches": SHORT}),
+                         ("fig11", {"benches": SHORT}), ("fig12", {}), ("fig13", {"benches": SHORT}),
+                         ("fig14", {"benches": SHORT})):
             rows[name] = (getattr(JFIG, name)(sess, **kw), getattr(PFIG, name)(ctx, **kw))
     finally:
         BC.OUT_DIR = old_out
@@ -132,14 +145,14 @@ def test_simulator_and_uvmsmart_cells_and_fig3_equal(both):
 
 def test_protocol_rows_within_limits(both):
     sess, ctx, rows = both
-    for name in ("fig4", "fig6", "fig11"):
+    for name in ("fig4", "fig6", "fig10", "fig11"):
         want, got = rows[name]
         _close_rows(want, got, exact=("benchmark", "n_classes"))
     for key, cell in sess.cells.items():
-        kind, b, mode, *chain = key.split("|")
-        if kind != "protocol" or chain:
+        kind, b, mode, *rest = key.split("|")
+        if kind != "protocol" or (rest and not rest[0].startswith("kind=")):
             continue
-        r = ctx.protocol(b, mode)
+        r = ctx.protocol(b, mode, kind=rest[0][len("kind="):] if rest else "transformer")
         assert (r.n_classes, r.n_models, r.n_samples) == (cell["n_classes"], cell["n_models"], cell["n_samples"])
         assert abs(r.top1 - cell["top1"]) <= ACC_ATOL, key
         assert max(abs(a - c) for a, c in zip(r.per_group, cell["per_group"])) <= ACC_ATOL, key
@@ -183,8 +196,9 @@ def test_chain_memo_and_surface(both):
     # the thrashing-term ablation is its own cell
     w, wo = ctx.ours("ATAX"), ctx.ours("ATAX", use_thrash_term=False)
     assert w is not wo and ctx.ours("ATAX", use_thrash_term=False) is wo and ctx.ours("ATAX") is w
-    with pytest.raises(NotImplementedError, match="A2"):
-        PFIG.fig10(ctx)
+    # each predictor kind's protocol run is its own memoised cell
+    assert ctx.protocol("ATAX", "online_single", kind="mlp") is ctx.protocol("ATAX", "online_single", kind="mlp")
+    assert ctx.protocol("ATAX", "online_single", kind="mlp") is not ctx.protocol("ATAX", "online_single")
 
 
 def test_runner_cli_and_paper_tables():
@@ -192,5 +206,6 @@ def test_runner_cli_and_paper_tables():
     assert ctx._tables["fig11"] == PTAB.PAPER_TABLE_S123
     with pytest.raises(NotImplementedError, match="Fig. 11"):
         PTAB.Context("quick", device="cpu").pretrained("fig11")
-    with pytest.raises(SystemExit):
-        PFIG.main(["--only", "fig10", "--device", "cpu"])
+    with pytest.raises(SystemExit):  # not a figure of the runner
+        PFIG.main(["--only", "fig5", "--device", "cpu"])
+    assert "fig10" in PFIG.FIGURES

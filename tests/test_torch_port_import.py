@@ -216,14 +216,14 @@ def test_unported_options_raise():
     from repro_torch.uvm import trace as T
     from repro_torch.uvm.manager import ManagerConfig, OversubscriptionManager
 
-    with pytest.raises(NotImplementedError, match="kind 'lstm'"):  # the baseline predictors of baselines_nn
-        Trainer(SMOKE, TrainConfig(epochs=1), kind="lstm", device="cpu").train_group(Entry(params={}), None, 2)
+    with pytest.raises(KeyError, match="unknown predictor kind 'gru'"):  # not in the predictor registry
+        Trainer(SMOKE, TrainConfig(epochs=1), kind="gru", device="cpu").train_group(Entry(params={}), None, 2)
     with pytest.raises(NotImplementedError, match="health"):
         OversubscriptionManager(ManagerConfig(predictor=SMOKE, health=object()), device="cpu")
     with pytest.raises(NotImplementedError, match="freq_table"):
         OversubscriptionManager(ManagerConfig(predictor=SMOKE, freq_table="lru"), device="cpu")
     tr = T.get_trace("AddVectors", 0.1)
     tagged = T.Trace(tr.name, tr.page, tr.pc, tr.tb, tr.kernel, tr.n_pages, tenant=tr.page * 0)
-    # a tagged trace runs through TenantMux now; its QoS budgets are not ported
-    with pytest.raises(NotImplementedError, match="QoS"):
-        R.run_ours(tagged, SMOKE, TrainConfig(epochs=0), qos=object(), device="cpu")
+    # QoS budgets partition a multi-tenant run only
+    with pytest.raises(ValueError, match="tenant-tagged multi-tenant run"):
+        R.run_ours(tagged, SMOKE, TrainConfig(epochs=0), qos=object(), multi_tenant=False, device="cpu")

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -16,15 +17,26 @@ import torch
 from repro.uvm import simulator as JS
 from repro.uvm import trace as JT
 from repro_torch.kernels import evict_select as ES
+from repro_torch import random as PRNG
 from repro_torch.uvm import simulator as PS
 from repro_torch.uvm import trace as PT
 
 FIELDS = [f.name for f in dataclasses.fields(PS.SimState)]
 
 
+def _field(state, f):
+    """A state field as numpy; the PRNG key as its uint32 data (typed in a
+    JAX state, raw data once ``JS.run`` returns it)."""
+    v = getattr(state, f)
+    if f == "key":
+        return PRNG.key_data(v) if isinstance(v, torch.Tensor) else np.asarray(
+            jax.random.key_data(v) if jax.dtypes.issubdtype(v.dtype, jax.dtypes.prng_key) else v)
+    return np.asarray(v) if not isinstance(v, torch.Tensor) else v.numpy()
+
+
 def _assert_state_equal(j, p):
     for f in FIELDS:
-        a, b = np.asarray(getattr(j, f)), getattr(p, f).numpy()
+        a, b = _field(j, f), _field(p, f)
         assert a.dtype == b.dtype and a.shape == b.shape, f
         np.testing.assert_array_equal(a, b, err_msg=f)
 
@@ -127,7 +139,7 @@ def test_evict_fit_takes_the_lexicographic_minimum():
 
 def test_unported_cells_raise():
     st = PS.init_state(128, "cpu")
-    for pol, pf in (("random", "demand"), ("random", "tree"), ("lru", "stride")):
+    for pol, pf in (("mru", "demand"), ("random", "stride"), ("lru", "stride")):
         with pytest.raises(NotImplementedError):
             PS.run_segment(st, np.zeros(4, np.int32), np.zeros(4, np.int32), capacity=4, policy=pol,
                            prefetch=pf, n_valid=1)

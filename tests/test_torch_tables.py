@@ -10,6 +10,7 @@ import dataclasses
 from pathlib import Path
 
 import jax.numpy as jnp
+import jax
 import numpy as np
 import pytest
 import torch
@@ -32,6 +33,7 @@ from repro_torch.configs import predictor_paper as PC
 from repro_torch.core import incremental as PI
 from repro_torch.core.features import unique_deltas_per_phase as p_unique_deltas
 from repro_torch.uvm import runtime as PR
+from repro_torch import random as PRNG
 from repro_torch.uvm import simulator as PS
 from repro_torch.uvm import trace as PT
 from repro_torch.uvm.uvmsmart import run_uvmsmart as p_run_uvmsmart
@@ -41,9 +43,19 @@ SMOKE_MEMO = ROOT / "experiments" / "cache" / "pretrain_e8919be312ea6abc.pkl"
 FIELDS = [f.name for f in dataclasses.fields(PS.SimState)]
 
 
+def _field(state, f):
+    """A state field as numpy; the PRNG key as its uint32 data (typed in a
+    JAX state, raw data once ``JS.run`` returns it)."""
+    v = getattr(state, f)
+    if f == "key":
+        return PRNG.key_data(v) if isinstance(v, torch.Tensor) else np.asarray(
+            jax.random.key_data(v) if jax.dtypes.issubdtype(v.dtype, jax.dtypes.prng_key) else v)
+    return np.asarray(v) if not isinstance(v, torch.Tensor) else v.numpy()
+
+
 def _assert_state_equal(j, p):
     for f in FIELDS:
-        a, b = np.asarray(getattr(j, f)), getattr(p, f).numpy()
+        a, b = _field(j, f), _field(p, f)
         assert a.dtype == b.dtype and a.shape == b.shape, f
         np.testing.assert_array_equal(a, b, err_msg=f)
 
@@ -225,8 +237,10 @@ def test_runner_presets_and_quick_ours_raises():
     assert PTAB.STANDARD_CELLS == Session.STANDARD_CELLS
     ctx = PTAB.Context("quick", device="cpu")
     assert ctx.pcfg == PC.CONFIG_QUICK and (ctx.tcfg.group_size, ctx.tcfg.epochs, ctx.tcfg.batch_size) == (1024, 2, 128)
-    with pytest.raises(NotImplementedError, match="pretrained table"):
-        ctx.ours("ATAX")
+    # the quick preset's ours starts from the JAX package's memo of its recipe
+    assert sorted(ctx.pretrained().slots) == [0, 3]
+    with pytest.raises(NotImplementedError, match="Table VII"):
+        ctx.pretrained("table7")
     paper = PTAB.Context("paper", frozen=True, device="cpu")
     assert paper.pcfg == PC.CONFIG and (paper.tcfg.group_size, paper.tcfg.epochs) == (2048, 0)
     assert paper.with_train(PI.TrainConfig()).tcfg.epochs == 3

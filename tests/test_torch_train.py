@@ -4,8 +4,10 @@ fine-tuned ``run_ours``, Section V-A pretraining, the ``manager`` KV
 offload (``LearnedOffloadManager``) and the serve entry point with it.
 
 Fresh model-table slots draw their weights from ``jax.random`` in the JAX
-package and from ``torch.Generator`` in the port, so every comparison hands
-the port the JAX package's initial weights (converted).
+package and from ``repro_torch.random`` in the port, which are one ulp
+apart in a few elements in a hundred thousand, so every comparison hands
+the port the JAX package's initial weights (converted) to start from the
+same bits.
 
 Tolerances, each with its reason:
 
