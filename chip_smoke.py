@@ -185,6 +185,33 @@ Phases, in order; any failure exits non-zero:
               equal; launches per column.  The full Tables IX and X and Fig.
               10 are the runners' (``--only table9 table10 --scale quick``,
               ``--only fig10 --scale paper``).
+12. fault tolerance — against ``experiments/torch/fault_tolerance_ref.json``
+              (the JAX package's runs, ``export_torch_reference.py
+              --fault-tolerance``): (a) the frozen Hotspot x1.5 run at
+              ``CONFIG`` driven by hand, its manager's ``state()`` saved in
+              a ``SnapshotStore`` after group ``FT_SNAP_AFTER``, read back
+              (hash checked) and restored into a fresh ``manager_for``:
+              stats, top-1, warm top-1, per-group accuracies and prediction
+              count equal the JAX package's; (b) the same for the fine-tuned
+              ATAX x1.5 at the paper preset, equal to the port's own
+              uninterrupted run; (c) the Hotspot run without and with
+              ``HealthConfig()`` and no fault (host seconds per round of
+              each, and of the params check), and under the reference's
+              seeded ``ChaosSchedule`` on the trainer and the frequency
+              table: the injector's counts, the health counters and every
+              round's ``(health, fallback)`` equal the JAX package's; (d)
+              the mux on StreamTriad+2DCONV: snapshots with isolated and
+              shared tables equal the JAX package's runs, and a chaos run
+              on ``evaluate_many`` (every tenant demoted per failure) with
+              equal counts and sequence; (e) the KV offload's checkpoint
+              and resume, equal to the uninterrupted run; (f) ``lru_clone``,
+              ``mru`` and ``tree_clone`` registered and run through
+              ``run_batch`` on ATAX, every cell equal to the JAX package's,
+              and Hotspot's fault log with the JAX package's SHA-256,
+              reading back to the trace.  (b)-(e)'s runs against the JAX
+              package's equal where ``scripts/rehearse_fault_tolerance_cpu.py``
+              gives equal (``FT_EQUAL``), else within phase 7 (b)'s limits;
+              launches and host seconds per column.
 
 The last lines are the card's ``nvidia-smi`` line, a ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -2655,6 +2682,343 @@ def zoo_launch_checks(columns: dict) -> None:
             check(col["launches"][k] > 0, f"the {name} column never launched {k}")
 
 
+# --- phase 12: the fault-tolerant manager ------------------------------------------------
+
+FT_REF = ROOT / "experiments" / "torch" / "fault_tolerance_ref.json"
+# the runs scripts/rehearse_fault_tolerance_cpu.py gives equal to the JAX
+# package's, held equal on the card; the others within phase 7 (b)'s limits
+# ((c)'s and (d)'s chaos counts, counters and health sequences are always
+# held equal; the snapshot runs are always held equal to their uninterrupted
+# twins)
+FT_EQUAL = ("atax_tuned", "chaos", "health_on", "mux_chaos", "offload")
+# (a) snapshots Hotspot after its second group (as the reference's test does
+# on ATAX), (b) ATAX, which has two groups at the paper preset, after its first
+FT_SNAP_AFTER = {"hotspot": 1, "atax_tuned": 0, "mux": 1}
+
+
+def drive_ours(make, trace, snap_after: int | None = None, store=None, restore_into=None) -> tuple:
+    """``run_ours``'s loop by hand over ``make()``'s manager or mux, as the
+    reference's ``test_golden_pinned_snapshot_restore_real_predictor``
+    drives it; after group ``snap_after`` the manager's ``state()`` is saved
+    in ``store`` (a ``SnapshotStore``), read back (hash checked) and
+    restored into ``restore_into()``, a fresh one, which finishes the run.
+    Returns the result and the seconds the snapshot took (state, save,
+    read, restore)."""
+    import numpy as np
+
+    from repro_torch.uvm import runtime as R
+    from repro_torch.uvm import simulator as S
+    from repro_torch.uvm.manager import Outcomes, TenantMux
+
+    mgr = make()
+    nb, cap = mgr.cfg.n_blocks, mgr.cfg.capacity
+    state = S.init_state(nb, mgr.device)
+    blocks, nxt = trace.block.astype(np.int32), S.next_use_for(trace)
+    ledger = R._TenantLedger(trace, mgr) if trace.tenant is not None else None
+    G, snap_s = mgr.cfg.train.group_size, None
+    for i, g0 in enumerate(range(0, len(trace), G)):
+        g1 = min(g0 + G, len(trace))
+        actions = mgr.observe(R._group_batch(trace, g0, g1))
+        ep = mgr.evict_pref(state.resident) if isinstance(mgr, TenantMux) else None
+        state = R._apply_actions(state, actions, nb, cap, evict_pref=ep)
+        state, outs = S.run_segment(state, blocks[g0:g1], nxt[g0:g1], capacity=cap, policy="learned",
+                                    prefetch="demand", n_valid=trace.n_blocks, evict_pref=ep)
+        mgr.feedback(Outcomes(was_evicted=outs["was_evicted"], fault_count=int(state.fault_count)))
+        if ledger is not None:
+            ledger.account(g0, g1, outs)
+        if i == snap_after:
+            t0 = time.perf_counter()
+            store.save(i + 1, mgr.state(), extra={"group": i})
+            step, snap, extra = store.restore()
+            check((step, extra) == (i + 1, {"group": i}), "the snapshot store returned another snapshot")
+            mgr = restore_into()
+            mgr.restore(snap)
+            snap_s = time.perf_counter() - t0
+    return R._result(mgr, state, len(trace), None if ledger is None else ledger.result()), snap_s
+
+
+def ft_fields(res) -> dict:
+    """What phase 12 holds of a ``run_ours`` (the reference's record)."""
+    out = {"stats": res.stats, "top1": res.top1, "warm_top1": res.warm_top1, "n_predictions": res.n_predictions,
+           "per_group_acc": res.per_group_acc}
+    if res.per_tenant_top1 is not None:
+        out.update(per_tenant_top1=res.per_tenant_top1, per_tenant_stats=res.per_tenant_stats)
+    return out
+
+
+def chaos_run(mgr, trace, schedule: dict, oversub: float, tcfg) -> dict:
+    """One ``run_ours`` through ``mgr`` (health on) with a ``FaultInjector``
+    of ``schedule`` wrapping its trainer (and a manager's frequency table):
+    the result, the injector's counts, the health counters and every
+    round's ``(health, fallback)`` (a mux's per tenant), as the export
+    records the JAX package's."""
+    from repro_torch.configs.predictor_paper import CONFIG
+    from repro_torch.uvm import runtime as R
+    from repro_torch.uvm.manager import ChaosSchedule, FaultInjector, TenantMux
+
+    inj = FaultInjector(ChaosSchedule(**schedule))
+    mgr.trainer = inj.wrap_trainer(mgr.trainer)
+    if not isinstance(mgr, TenantMux):
+        mgr.freq_table = inj.wrap_freq_table(mgr.freq_table)
+    seq, observe = [], mgr.observe
+
+    def recording(batch):
+        a = observe(batch)
+        seq.append({str(k): [t.health, t.fallback] for k, t in a.per_tenant.items()}
+                   if isinstance(mgr, TenantMux) else [a.health, a.fallback])
+        return a
+
+    mgr.observe = recording
+    res = R.run_ours(trace, CONFIG, tcfg, oversubscription=oversub, manager=mgr)
+    return {"counts": dict(inj.counts), "n_health_faults": mgr.n_health_faults, "n_fallbacks": mgr.n_fallbacks,
+            "n_recoveries": mgr.n_recoveries, "sequence": seq, "run": res}
+
+
+def fault_tolerance_path(dev) -> dict:
+    """Phase 12: the fault-tolerant manager against
+    ``experiments/torch/fault_tolerance_ref.json``: (a) a snapshot of the
+    frozen Hotspot x1.5 manager at ``CONFIG`` through ``SnapshotStore``,
+    restored into a fresh ``manager_for``, equal to the JAX package's run;
+    (b) the same for the fine-tuned ATAX run, equal to the port's own
+    uninterrupted run; (c) the health machine under a seeded chaos
+    schedule, and with health on and no chaos; (d) the mux on
+    StreamTriad+2DCONV: snapshots with isolated and shared tables equal to
+    the JAX package's runs, and a chaos run on ``evaluate_many``; (e) the KV
+    offload's checkpoint and resume; (f) registered policies and a
+    registered prefetcher through ``run_batch``, and Hotspot's fault log.
+    Returns the launches of all its columns."""
+    import hashlib
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import convert, kernels
+    from repro_torch.bench import tables as TB
+    from repro_torch.configs.predictor_paper import CONFIG
+    from repro_torch.core.incremental import TrainConfig
+    from repro_torch.serving.offload import LearnedOffloadManager
+    from repro_torch.uvm import registry as REG
+    from repro_torch.uvm import runtime as R
+    from repro_torch.uvm import simulator as S
+    from repro_torch.uvm import trace as T
+    from repro_torch.uvm.manager import HealthConfig, SnapshotStore
+    from repro_torch.uvm.manager import core as MC
+
+    ref = json.loads(FT_REF.read_text())
+    frozen, tuned = TrainConfig(**ref["train"]["frozen"]), TrainConfig(**ref["train"]["fine_tuned"])
+    check(dataclasses.asdict(HealthConfig()) == ref["health"], "HealthConfig's defaults are not the reference's")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ft_"))
+    hot = T.get_trace("Hotspot", ref["scale"])
+    ctx = TB.Context("paper", fresh=FRESH, device=dev)
+    atax = ctx.trace("ATAX")
+    check(len(atax) == ref["atax_tuned"]["n_accesses"], "ATAX's paper-preset trace is not the reference's")
+    empty = lambda fresh=None: convert.fresh_table(CONFIG, dev, 8, fresh)
+    hot_mgr = lambda table, **kw: R.manager_for(hot, CONFIG, frozen, oversubscription=ref["hotspot_oversub"],
+                                                table=table, device=dev, **kw)
+    walked, finite = [0], [0, 0.0]
+    scan, tree_finite = S._scan_events, MC._tree_finite
+
+    def counting(state, ev, *a):
+        walked[0] += len(ev.blk)
+        return scan(state, ev, *a)
+
+    def timed_finite(tree):
+        t0 = time.perf_counter()
+        try:
+            return tree_finite(tree)
+        finally:
+            finite[0] += 1
+            finite[1] += time.perf_counter() - t0
+
+    columns, runs = {}, {}
+
+    def column(name, items):
+        _sync(dev)
+        kernels.reset_launches()
+        t_col = time.perf_counter()
+        for key, fn in items:
+            walked[0] = 0
+            t0 = time.perf_counter()
+            runs[key] = fn()
+            _sync(dev)
+            runs[key + ":cost"] = {"host_s": time.perf_counter() - t0, "events": walked[0]}
+        _sync(dev)
+        columns[name] = {"host_s": time.perf_counter() - t_col, "runs": len(items), "launches": dict(kernels.LAUNCHES)}
+
+    def store(name):
+        return SnapshotStore(tmp / name, keep=1)
+
+    pair = ctx.with_train(frozen).concurrent(tuple(ref["pair"]), slice_len=frozen.group_size)
+    check(merge_sha256(pair) == ref["mux"]["sha256"], "the StreamTriad+2DCONV merge differs from the JAX package's")
+    mux = lambda shared, table, **kw: R.mux_for(pair, CONFIG, frozen, oversubscription=ref["pair_oversub"],
+                                                table=table, shared_freq_table=shared, device=dev, **kw)
+    atax_mgr = lambda table: R.manager_for(atax, CONFIG, tuned, oversubscription=ref["atax_oversub"], table=table,
+                                           device=dev)
+
+    def offload_runs():
+        def drive(m, steps, rng):
+            for _ in range(steps):
+                touched = rng.integers(0, 64, 16)
+                mass = np.zeros(64)
+                mass[touched] = 1.0
+                m.on_attention(mass, touched)
+
+        whole = LearnedOffloadManager(64, 16, group=32, device=dev)
+        drive(whole, 20, np.random.default_rng(9))
+        m1 = LearnedOffloadManager(64, 16, group=32, checkpoint_dir=tmp / "offload", checkpoint_every=2, device=dev)
+        rng = np.random.default_rng(9)
+        drive(m1, 10, rng)
+        m2 = LearnedOffloadManager(64, 16, group=32, checkpoint_dir=tmp / "offload", resume=True, device=dev)
+        check(m2._observed_batches == SnapshotStore(tmp / "offload").latest_step() == 4,
+              f"the offload resumed at batch {m2._observed_batches}, not its last snapshot's (4)")
+        m2.restore(m1.state())  # roll forward to the live position, as the reference's test does
+        drive(m2, 10, rng)
+        return whole, m2
+
+    def plugin_runs():
+        with REG.scoped():
+            REG.register_policy("lru_clone", lambda st, i, t: (st.last_access,))
+            REG.register_policy("mru", lambda st, i, t: (-st.last_access,))
+            REG.register_prefetcher("tree_clone", S._tree_mask)
+            return S.run_batch(atax, [tuple(c) for c in ref["plugins"]["cells"]], device=dev)
+
+    S._scan_events, MC._tree_finite = counting, timed_finite
+    try:
+        column("snapshots", [
+            ("hotspot", lambda: drive_ours(lambda: hot_mgr(R.load_pretrained(WEIGHTS, CONFIG, dev)), hot,
+                                           FT_SNAP_AFTER["hotspot"], store("a"), lambda: hot_mgr(empty()))),
+            ("atax_whole", lambda: drive_ours(lambda: atax_mgr(ctx.pretrained()), atax)),
+            ("atax_tuned", lambda: drive_ours(lambda: atax_mgr(ctx.pretrained()), atax, FT_SNAP_AFTER["atax_tuned"],
+                                              store("b"), lambda: atax_mgr(empty(ctx.fresh)))),
+            ("mux", lambda: drive_ours(lambda: mux(False, ctx.pretrained()), pair, FT_SNAP_AFTER["mux"], store("d0"),
+                                       lambda: mux(False, empty(ctx.fresh)))),
+            ("mux_shared", lambda: drive_ours(lambda: mux(True, ctx.pretrained()), pair, FT_SNAP_AFTER["mux"],
+                                              store("d1"), lambda: mux(True, empty(ctx.fresh))))])
+        column("health", [
+            ("health_off", lambda: R.run_ours(hot, CONFIG, frozen, oversubscription=ref["hotspot_oversub"],
+                                              manager=hot_mgr(R.load_pretrained(WEIGHTS, CONFIG, dev)))),
+            ("health_on", lambda: R.run_ours(hot, CONFIG, frozen, oversubscription=ref["hotspot_oversub"],
+                                             manager=hot_mgr(R.load_pretrained(WEIGHTS, CONFIG, dev),
+                                                             health=HealthConfig()))),
+            ("chaos", lambda: chaos_run(hot_mgr(R.load_pretrained(WEIGHTS, CONFIG, dev), health=HealthConfig()), hot,
+                                        ref["chaos"]["schedule"], ref["hotspot_oversub"], frozen)),
+            ("mux_chaos", lambda: chaos_run(mux(False, ctx.pretrained(), health=HealthConfig()), pair,
+                                            ref["mux"]["chaos"]["schedule"], ref["pair_oversub"], frozen))])
+        n_finite, finite_s = finite
+        column("offload", [("offload", offload_runs)])
+        column("plugins", [("plugins", plugin_runs)])
+    finally:
+        S._scan_events, MC._tree_finite = scan, tree_finite
+    cost = {k[:-5]: v for k, v in runs.items() if k.endswith(":cost")}
+    print("  runs: " + json.dumps({k: {**v, "ms_per_event": 1e3 * v["host_s"] / v["events"] if v["events"] else None}
+                                   for k, v in cost.items()}))
+    print("  columns: " + json.dumps({k: {f: v[f] for f in ("host_s", "runs")} for k, v in columns.items()}))
+    dist = {}
+    # (a) Hotspot through a snapshot: the JAX package's run (phase 4's), bit for bit
+    res, snap_s = runs["hotspot"]
+    check(ft_fields(res) == {k: ref["hotspot"][k] for k in ft_fields(res)},
+          f"(a) the restored Hotspot run differs from the JAX package's: {ft_fields(res)['stats']}")
+    print(f"  (a) Hotspot x{ref['hotspot_oversub']} snapshotted after group {FT_SNAP_AFTER['hotspot']} "
+          f"({snap_s:.3f} s to snapshot, save, read and restore): stats, top-1 {res.top1}, warm top-1, per-group "
+          f"accuracies and prediction count equal the JAX package's")
+    # (b) ATAX fine-tuned: the restored run is the uninterrupted one; that one is near JAX's
+    (whole, _), (res, snap_s) = runs["atax_whole"], runs["atax_tuned"]
+    check(ft_fields(res) == ft_fields(whole), f"(b) the restored fine-tuned ATAX run differs from the uninterrupted "
+          f"one: {ft_fields(res)} against {ft_fields(whole)}")
+    dist["atax_tuned"] = run_distance(whole, ref["atax_tuned"])
+    print(f"  (b) ATAX x{ref['atax_oversub']} fine-tuned, snapshotted after group {FT_SNAP_AFTER['atax_tuned']} "
+          f"({snap_s:.3f} s): equal to the uninterrupted run (top-1 {whole.top1}; JAX {ref['atax_tuned']['top1']})")
+    # (c) the health machine: no fault absorbed without chaos; under chaos JAX's counts and sequence
+    check(ft_fields(runs["health_off"]) == {k: ref["hotspot"][k] for k in ft_fields(runs["health_off"])},
+          "(c) the Hotspot run without the health machine differs from the JAX package's")
+    dist["health_on"] = run_distance(runs["health_on"], ref["hotspot"])
+    ch, want = runs["chaos"], ref["chaos"]
+    got = {k: ch[k] for k in ("counts", "n_health_faults", "n_fallbacks", "n_recoveries", "sequence")}
+    check(got == {k: want[k] for k in got}, f"(c) the chaos run's health record differs from the JAX package's: "
+          f"{json.dumps({k: got[k] for k in got if k != 'sequence'})} against "
+          f"{json.dumps({k: want[k] for k in got if k != 'sequence'})}")
+    check(all(want["counts"].get(k, 0) >= 2 for k in ("trainer_exc", "nan_output", "train_exc", "nan_params",
+                                                      "drop_freq_update")) and want["n_recoveries"] >= 1,
+          "(c) the reference's schedule does not fire every site twice and recover")
+    dist["chaos"] = run_distance(ch["run"], want["run"])
+    n_rounds = len(hot) // frozen.group_size + 1
+    per_round = {k: cost[k]["host_s"] / n_rounds for k in ("health_off", "health_on", "chaos")}
+    print(f"  (c) health on, no chaos: {json.dumps({k: dist['health_on'][k] for k in ('stats', 'top1', 'equal')})}; "
+          f"chaos {json.dumps(want['schedule'])}: fired {json.dumps(ch['counts'])}, health faults "
+          f"{ch['n_health_faults']}, fallbacks {ch['n_fallbacks']}, recoveries {ch['n_recoveries']}, every round's "
+          f"(health, fallback) equal to the JAX package's; params checks {n_finite} in {finite_s:.4f} s "
+          f"({1e3 * finite_s / max(n_finite, 1):.3f} ms each); host s per round "
+          + json.dumps(per_round))
+    # (d) the mux: snapshots with isolated and shared tables equal to JAX's; chaos on evaluate_many
+    for name in ("mux", "mux_shared"):
+        res, snap_s = runs[name]
+        check(ft_fields(res) == {k: ref["mux"][name][k] for k in ft_fields(res)},
+              f"(d) the restored {name} run differs from the JAX package's: {ft_fields(res)['stats']}")
+    mc, want = runs["mux_chaos"], ref["mux"]["chaos"]
+    got = {k: mc[k] for k in ("counts", "n_health_faults", "n_fallbacks", "n_recoveries", "sequence")}
+    check(got == {k: want[k] for k in got}, f"(d) the mux chaos run's health record differs from the JAX package's: "
+          f"{json.dumps({k: got[k] for k in got if k != 'sequence'})}")
+    dist["mux_chaos"] = tuned_distance(mc["run"], want["run"])
+    print(f"  (d) {'+'.join(ref['pair'])}: snapshots with isolated and shared tables equal the JAX package's runs "
+          f"(top-1 {runs['mux'][0].top1}, {runs['mux_shared'][0].top1}); chaos {json.dumps(want['schedule'])}: fired "
+          f"{json.dumps(mc['counts'])}, health faults {mc['n_health_faults']} (every tenant of a failed dispatch), "
+          f"recoveries {mc['n_recoveries']}, sequence equal")
+    # (e) the KV offload: the resumed stream is the uninterrupted one; that one against JAX's
+    whole, resumed = runs["offload"]
+    check((dataclasses.asdict(resumed.stats), resumed.resident.tolist(), resumed.manager.top1)
+          == (dataclasses.asdict(whole.stats), whole.resident.tolist(), whole.manager.top1),
+          "(e) the resumed offload stream differs from the uninterrupted one")
+    ws, wo = dataclasses.asdict(whole.stats), ref["offload"]
+    dist["offload"] = {"stats": ws, "top1": whole.manager.top1, "top1_diff": abs(whole.manager.top1 - wo["top1"]),
+                       "stats_rtol": {k: _rel(ws[k], wo["stats"][k]) for k in ws}, "n_predictions_equal": True,
+                       "first_groups_acc_diff": 0.0,
+                       "equal": (ws, np.flatnonzero(whole.resident).tolist(), whole.manager.top1)
+                       == (wo["stats"], wo["resident"], wo["top1"])}
+    print(f"  (e) offload checkpoint every 2 batches, resumed at 4: equal to the uninterrupted run ({json.dumps(ws)})")
+    # (f) plug-ins: the clones equal the builtins, every cell equal to JAX's; the fault log
+    stats = runs["plugins"]
+    check(stats[0] == stats[1] == stats[4], f"(f) the clones differ from the builtins: {stats}")
+    check(stats == ref["plugins"]["stats"], f"(f) run_batch with registered strategies differs from the JAX "
+          f"package's: {stats} against {ref['plugins']['stats']}")
+    log = tmp / "hotspot.jsonl"
+    lines = T.to_fault_log(hot, log, batch=ref["fault_log"]["batch"])
+    back = T.from_fault_log(log)
+    fl = ref["fault_log"]
+    check((lines, hashlib.sha256(log.read_bytes()).hexdigest()) == (fl["lines"], fl["sha256"]),
+          "(f) Hotspot's fault log differs from the JAX package's")
+    check(merge_sha256(back) == merge_sha256(hot) == fl["read_back_sha256"] == fl["trace_sha256"],
+          "(f) the fault log does not read back to phase 4's trace")
+    print(f"  (f) run_batch on ATAX: lru_clone and tree_clone equal the builtins, mru's counters and every cell equal "
+          f"the JAX package's ({json.dumps(stats[2])}); evict_select launched "
+          f"{columns['plugins']['launches']['evict_select']} times; Hotspot's fault log ({lines} lines, "
+          f"{log.stat().st_size} bytes) has the JAX package's SHA-256 and reads back to the trace")
+    print("  (b)-(e) " + json.dumps(dist))
+    for k, d in dist.items():
+        check_tuned(k, d, FT_EQUAL)
+    print(f"  (b)-(e): {sum(d['equal'] for d in dist.values())} of {len(dist)} runs equal to the JAX package's, "
+          f"the rest within phase 7 (b)'s limits")
+    print("  launches: " + json.dumps({k: {n: c for n, c in v["launches"].items() if c} for k, v in columns.items()}))
+    ft_launch_checks(columns)
+    return {k: sum(c["launches"][k] for c in columns.values()) for k in next(iter(columns.values()))["launches"]}
+
+
+def ft_launch_checks(columns: dict) -> None:
+    """The snapshot and health columns launch the predictor's attention,
+    ``evict_select`` and ``freq_update`` (the gate opens on Hotspot); the
+    snapshot column's fine-tuned ATAX also the attention backward and both
+    ``thrash_ce`` kernels, as does the offload column (whose prefetch gate
+    stays shut, as the JAX package's does: no ``freq_update``); the
+    plug-in column ``evict_select``."""
+    need = {"snapshots": ("evict_select", "freq_update", "flash_attention", "flash_attention_bwd", "thrash_ce_fwd",
+                          "thrash_ce_bwd"),
+            "health": ("evict_select", "freq_update", "flash_attention"),
+            "offload": ("flash_attention", "flash_attention_bwd", "thrash_ce_fwd", "thrash_ce_bwd"),
+            "plugins": ("evict_select",)}
+    for name, col in columns.items():
+        for k in need[name]:
+            check(col["launches"][k] > 0, f"the {name} column never launched {k}")
+
+
 def main() -> int:
     import argparse
 
@@ -2688,13 +3052,13 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
         smi = nvidia_smi_line()
-        print(f"[1/11] device: {name} (count {count}); nvidia-smi: {smi}")
+        print(f"[1/12] device: {name} (count {count}); nvidia-smi: {smi}")
         print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
         t0 = time.perf_counter()
         LIBRARY.cdll()
         how = "built" if LIBRARY.build_seconds is not None else "loaded the existing build"
-        print(f"[2/11] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
+        print(f"[2/12] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
         for line in LIBRARY.ptxas_log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line or line.startswith("=="):
                 print("      " + line.strip())
@@ -2708,7 +3072,7 @@ def main() -> int:
             time_training(dev, args.time_training)
             return 0
 
-        print(f"[3/11] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
+        print(f"[3/12] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
         rows = [kernel_evict_select(dev), *kernel_freq_table(dev), kernel_flash_attention(dev),
                 kernel_flash_attention_bf16(dev), kernel_flash_attention_bwd(dev), kernel_decode_attention(dev),
                 kernel_ssd_scan(dev), *kernel_thrash_ce(dev)]
@@ -2727,16 +3091,16 @@ def main() -> int:
               f"step {tf['step_device_ops_per_call']}")
 
         by_path = {}
-        print(f"[4/11] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
+        print(f"[4/12] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         _, by_path["run_ours"] = main_path(dev)
-        print(f"[5/11] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
+        print(f"[5/12] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["serve"], qwen2_engine, qwen2_prompt = serve_path(dev)
-        print(f"[6/11] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
+        print(f"[6/12] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["serve_mamba2"] = serve_mamba2_path(dev)
-        print(f"[7/11] train: one train_group, the fine-tuned run_ours (Hotspot x1.5, CONFIG, TrainConfig()) and the "
+        print(f"[7/12] train: one train_group, the fine-tuned run_ours (Hotspot x1.5, CONFIG, TrainConfig()) and the "
               f"manager KV offload (qwen2-0.5b full width), on the card (at {time.perf_counter() - start:.0f} s)")
         by_path["train_group"] = train_group_check(dev)
         print(f"      (b) at {time.perf_counter() - start:.0f} s")
@@ -2744,26 +3108,33 @@ def main() -> int:
         print(f"      (c) at {time.perf_counter() - start:.0f} s")
         by_path["serve_manager"] = serve_manager_check(dev, qwen2_engine, qwen2_prompt)
         del qwen2_engine
-        print(f"[8/11] tables: the table runner at the paper preset, x1.25, 11 benchmarks (five simulator cells, "
+        print(f"[8/12] tables: the table runner at the paper preset, x1.25, 11 benchmarks (five simulator cells, "
               f"UVMSmart, frozen ours; fine-tuned ours on {len(TABLES_TUNED)}), on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["table6"], tables_ctx, tables_tuned = tables_path(dev)
-        print(f"[9/11] concurrent: Tables VII and VIII's cells, four pairs at the paper preset, x1.25 (frozen mux and "
+        print(f"[9/12] concurrent: Tables VII and VIII's cells, four pairs at the paper preset, x1.25 (frozen mux and "
               f"merged on all four; fine-tuned and Table VII on {', '.join(CONCURRENT_TUNED)}), on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["concurrent"] = concurrent_path(dev)
         t10 = time.perf_counter()
-        print(f"[10/11] figures: Figs. 3, 12, 13 and 14's cells on {', '.join(FIG3_BENCH)} and Figs. 4 and 11's "
+        print(f"[10/12] figures: Figs. 3, 12, 13 and 14's cells on {', '.join(FIG3_BENCH)} and Figs. 4 and 11's "
               f"protocols on {FIG_TUNED} at the paper preset, on the card (at {t10 - start:.0f} s)")
         by_path["figures"] = figures_path(dev, tables_ctx, tables_tuned)
         print(f"      phase 10 took {time.perf_counter() - t10:.1f} s")
         t11 = time.perf_counter()
-        print(f"[11/11] zoo and QoS: the JAX package's initial weights, Fig. 10's four predictor kinds on "
+        print(f"[11/12] zoo and QoS: the JAX package's initial weights, Fig. 10's four predictor kinds on "
               f"{FIG10_BENCH}, Table IX's first drift trace, Table X's StreamTriad+RandomScan under budgets and the "
               f"random policy, on the card (at {t11 - start:.0f} s)")
         by_path["zoo_qos"] = zoo_qos_path(dev)
         print(f"      phase 11 took {time.perf_counter() - t11:.1f} s; launches "
               + json.dumps({k: c for k, c in by_path["zoo_qos"].items() if c}))
+        t12 = time.perf_counter()
+        print(f"[12/12] fault tolerance: snapshots of the manager (Hotspot frozen, ATAX fine-tuned), the mux "
+              f"(StreamTriad+2DCONV) and the KV offload, the health machine under chaos, plug-ins through run_batch "
+              f"and the fault log, on the card (at {t12 - start:.0f} s)")
+        by_path["fault_tolerance"] = fault_tolerance_path(dev)
+        print(f"      phase 12 took {time.perf_counter() - t12:.1f} s; launches "
+              + json.dumps({k: c for k, c in by_path["fault_tolerance"].items() if c}))
         for r in rows:
             r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}
             r["launches"] = sum(r["launches_by_path"].values())

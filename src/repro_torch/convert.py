@@ -20,9 +20,19 @@ normals in a hundred thousand, one ulp apart).  To start a run from
 weights exported by the JAX package itself, pass ``fresh``, a mapping slot
 -> params (see :func:`fresh_slots`), to :func:`table_from_blob` or
 :func:`fresh_table`.
+
+A JAX-package manager snapshot (``OversubscriptionManager.state()``, or a
+``TenantMux.state()`` per tenant) becomes the port's through
+:func:`manager_state_from_jax` / :func:`mux_state_from_jax`: the model
+table by the conventions above, the classifier and frequency-table
+pickles re-read through :func:`unpickle_jax` (the frequency table's int64
+tags become the port's int32; pages are clipped into ``[0, n_pages)``, so
+nothing is lost), everything else as it is.
 """
 from __future__ import annotations
 
+import io
+import pickle
 from pathlib import Path
 
 import numpy as np
@@ -31,8 +41,35 @@ import torch
 from repro_torch.configs.predictor_paper import PredictorConfig
 from repro_torch.core import predictor
 from repro_torch.core.model_table import Entry, ModelTable
+from repro_torch.core.pattern import PatternClassifier
+from repro_torch.core.policy import PredictionFrequencyTable
 from repro_torch.device import resolve_device
 from repro_torch.optim.adamw import OptState
+
+
+class _JaxUnpickler(pickle.Unpickler):
+    """Unpickles a JAX-package object without importing that package: every
+    ``repro.*`` global maps to the port's own class."""
+
+    REMAP = {
+        ("repro.optim.adamw", "OptState"): OptState,
+        ("repro.core.pattern", "PatternClassifier"): PatternClassifier,
+        ("repro.core.policy", "PredictionFrequencyTable"): PredictionFrequencyTable,
+    }
+
+    def find_class(self, module, name):
+        if module == "repro" or module.startswith("repro."):
+            try:
+                return self.REMAP[(module, name)]
+            except KeyError:
+                raise pickle.UnpicklingError(f"no port-side class for {module}.{name}") from None
+        return super().find_class(module, name)
+
+
+def unpickle_jax(data: bytes):
+    """``pickle.loads`` of a JAX-package pickle, with its classes mapped
+    onto the port's (:class:`_JaxUnpickler`)."""
+    return _JaxUnpickler(io.BytesIO(data)).load()
 
 
 def params_from_jax(np_params: dict, device) -> dict[str, torch.Tensor]:
@@ -125,3 +162,48 @@ def fresh_slots(path: str | Path) -> dict[int, dict]:
     """The initial params per slot stored in an ``.npz`` of
     ``slot<s>/<param key>`` arrays (``fresh=`` of :func:`table_from_blob`)."""
     return {s: e["params"] for s, e in blob_from_npz(path)["slots"].items()}
+
+
+def _freq_table_from_jax(blob: bytes | None) -> bytes | None:
+    """The JAX package's pickled frequency table as the port's (host form,
+    int32 tags)."""
+    if blob is None:
+        return None
+    ft = unpickle_jax(blob)
+    tags = ft.tags.numpy()
+    if tags.size and not (-1 <= tags.min() and tags.max() < 2**31):
+        raise ValueError("frequency-table tags must fit int32")
+    ft.tags = torch.tensor(tags.astype(np.int32))
+    ft.counters = ft.counters.to(torch.int32)
+    return pickle.dumps(ft)
+
+
+def manager_state_from_jax(state: dict, pcfg: PredictorConfig, device) -> dict:
+    """A JAX-package ``OversubscriptionManager.state()`` as the port's, for
+    :meth:`repro_torch.uvm.manager.OversubscriptionManager.restore`: each
+    slot's params, ``opt_state`` and ``prev_params`` as tensors on
+    ``device`` (checked against the port predictor's parameter shapes at
+    ``pcfg``), the classifier and frequency table re-read as the port's
+    classes, every other entry as it is.  Its version and config signature
+    pass unchanged, so ``restore`` checks them against the port manager's
+    (the signatures are the same for the same configuration)."""
+    dev = resolve_device(device)
+    specs = predictor.param_specs(pcfg)
+    slots = {}
+    for slot, e in state["table"]["slots"].items():
+        shapes = {k: tuple(np.shape(v)) for k, v in e["params"].items()}
+        if shapes != {k: tuple(sp.shape) for k, sp in specs.items()}:
+            raise ValueError(f"slot {slot}: params do not match the predictor at {pcfg}")
+        slots[slot] = dict(e, params=_tree(e["params"], dev), prev_params=_tree(e["prev_params"], dev),
+                           opt_state=_tree(e["opt_state"], dev))
+    return dict(state, table=dict(state["table"], slots=slots),
+                classifier=pickle.dumps(unpickle_jax(state["classifier"])),
+                freq_table=_freq_table_from_jax(state["freq_table"]))
+
+
+def mux_state_from_jax(state: dict, pcfg: PredictorConfig, device) -> dict:
+    """A JAX-package ``TenantMux.state()`` as the port's: every tenant's
+    manager state through :func:`manager_state_from_jax`, the shared
+    frequency table re-read as the port's, the rest as it is."""
+    return dict(state, shared_freq=_freq_table_from_jax(state["shared_freq"]),
+                tenants=[(k, manager_state_from_jax(m, pcfg, device)) for k, m in state["tenants"]])

@@ -15,6 +15,11 @@ The table's int32 tags and counters live on the manager's device.
 ``update`` and ``lookup_many`` go through :mod:`repro_torch.kernels.
 freq_table`: the CUDA kernels for a CUDA table, their plain versions for a
 CPU table.  ``update`` changes the table in place.
+
+A table pickles to its host form (numpy tags and counters), so a snapshot
+taken on the card loads on a host without one; an unpickled table lives on
+the CPU until :meth:`PredictionFrequencyTable.to` moves it (the manager's
+``restore`` puts it on the manager's device).
 """
 from __future__ import annotations
 
@@ -37,6 +42,20 @@ class PredictionFrequencyTable:
         self.counters = torch.zeros((n_sets, ways), dtype=torch.int32, device=self.device)
         self.intervals_since_flush = 0
         self.flushes = 0
+
+    def __getstate__(self) -> dict:
+        d = {k: v for k, v in self.__dict__.items() if k != "device"}
+        return {**d, "tags": self.tags.cpu().numpy(), "counters": self.counters.cpu().numpy()}
+
+    def __setstate__(self, d: dict) -> None:
+        self.__dict__.update(d, device=torch.device("cpu"), tags=torch.tensor(d["tags"]),
+                             counters=torch.tensor(d["counters"]))
+
+    def to(self, device: str | torch.device) -> "PredictionFrequencyTable":
+        """Move the table to ``device`` in place; returns it."""
+        self.device = resolve_device(device)
+        self.tags, self.counters = self.tags.to(self.device), self.counters.to(self.device)
+        return self
 
     def _blocks(self, blocks) -> torch.Tensor:
         b = np.asarray(blocks, np.int64).ravel()

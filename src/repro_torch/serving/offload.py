@@ -30,7 +30,7 @@ import torch
 from repro_torch.configs.predictor_paper import SMOKE
 from repro_torch.core.incremental import TrainConfig
 from repro_torch.core.policy import PredictionFrequencyTable
-from repro_torch.uvm.manager import FaultBatch, ManagerConfig, Outcomes, OversubscriptionManager
+from repro_torch.uvm.manager import FaultBatch, ManagerConfig, Outcomes, OversubscriptionManager, SnapshotStore
 
 INTERVAL_STEPS = 64  # chain interval, in decode steps
 
@@ -189,18 +189,19 @@ class LearnedOffloadManager(KVOffloadManager):
     ``train_group`` draws its schedule from ``default_rng(seed)``, as in
     the reference).
 
-    The reference's snapshots (``checkpoint_dir``, ``checkpoint_every``,
-    ``resume``, ``state``/``restore``) need the manager's snapshot store,
-    which is not ported: passing them raises ``NotImplementedError``.
+    ``checkpoint_dir``/``checkpoint_every``/``resume`` survive engine
+    restarts: the adapter and manager state is snapshotted into a
+    :class:`~repro_torch.uvm.manager.SnapshotStore` every N observed
+    batches (host numpy: a snapshot taken on the card resumes on the CPU
+    and the other way round), and ``resume=True`` restores the latest
+    snapshot at construction.  The resumed decision stream is bit-identical
+    to an uninterrupted one.
     """
 
     def __init__(self, n_pages: int, hbm_capacity: int, *, manager: OversubscriptionManager | None = None,
                  group: int = 64, prefetch_per_step: int = 4, reclass_interval: int = 0, reclass_hysteresis: int = 2,
                  checkpoint_dir=None, checkpoint_every: int = 0, resume: bool = False,
                  device: str | torch.device = "cuda"):
-        if checkpoint_dir is not None or checkpoint_every or resume:
-            raise NotImplementedError("LearnedOffloadManager snapshots (checkpoint_dir, checkpoint_every, resume) "
-                                      "need the manager's snapshot store, which is not ported yet (ROADMAP A4)")
         super().__init__(n_pages, hbm_capacity, prefetch_per_step=prefetch_per_step,
                          device=device if manager is None else manager.device)
         self.manager = manager if manager is not None else _default_serving_manager(
@@ -214,6 +215,51 @@ class LearnedOffloadManager(KVOffloadManager):
         self.group = group
         self._buf: list[int] = []
         self.last_actions = None
+        # engine-restart survival: snapshot the adapter and the manager every
+        # checkpoint_every observed batches
+        self._snapshots = None
+        self._checkpoint_every = checkpoint_every
+        self._observed_batches = 0
+        if checkpoint_dir is not None:
+            self._snapshots = SnapshotStore(checkpoint_dir)
+            self._snapshots.clean_tmp()
+            if resume and self._snapshots.latest_step() is not None:
+                _step, state, _extra = self._snapshots.restore()
+                self.restore(state)
+
+    # -- snapshot / restore ---------------------------------------------------
+
+    def state(self) -> dict:
+        """Host-side snapshot: the residency adapter's arrays and stats, and
+        the wrapped manager's full learned state (versioned and
+        config-signed by :meth:`OversubscriptionManager.state`)."""
+        return {
+            "adapter": {
+                "resident": self.resident.copy(),
+                "evicted_once": self.evicted_once.copy(),
+                "last_interval": self.last_interval.copy(),
+                "attn_mass": self.attn_mass.copy(),
+                "step": self.step,
+                "buf": list(self._buf),
+                "observed_batches": self._observed_batches,
+                "stats": dataclasses.asdict(self.stats),
+            },
+            "manager": self.manager.state(),
+        }
+
+    def restore(self, state: dict) -> None:
+        a = state["adapter"]
+        self.resident = a["resident"].copy()
+        self.evicted_once = a["evicted_once"].copy()
+        self.last_interval = a["last_interval"].copy()
+        self.attn_mass = a["attn_mass"].copy()
+        self.step = a["step"]
+        self._buf = list(a["buf"])
+        self._observed_batches = a["observed_batches"]
+        self.stats = OffloadStats(**a["stats"])
+        self.manager.restore(state["manager"])
+
+    # -- the manager adapter --------------------------------------------------
 
     def _observe_batch(self):
         batch = np.asarray(self._buf[: self.group], np.int64)
@@ -233,6 +279,10 @@ class LearnedOffloadManager(KVOffloadManager):
             was_evicted=self.evicted_once[batch],
             fault_count=self.stats.hbm_misses,
         ))
+        self._observed_batches += 1
+        if (self._snapshots is not None and self._checkpoint_every
+                and self._observed_batches % self._checkpoint_every == 0):
+            self._snapshots.save(self._observed_batches, self.state())
 
     def _freq_dense(self) -> np.ndarray:
         # block id == kv page id (see _observe_batch), so the manager's

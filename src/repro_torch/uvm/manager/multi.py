@@ -42,21 +42,25 @@ feedback round feeds the tenant's thrash rate into the elastic rebalance,
 and :meth:`TenantMux.evict_pref` compiles the budgets into the simulator's
 leading victim key (a fourth ``evict_select`` key).
 
-Not ported (ROADMAP A4): snapshots (``state``, ``restore``) and the
-component registry's classifiers and frequency tables (a non-builtin one);
-each raises ``NotImplementedError``.
+With ``cfg.health`` set, each tenant's pre-dispatch guard runs first (a
+tenant with poisoned params falls back alone), and a failed batched
+dispatch (``evaluate_many`` or ``train_group_many``) demotes every tenant
+that rode it.  :meth:`TenantMux.state` / :meth:`TenantMux.restore`
+snapshot the whole mux as host numpy: the shared frequency table once,
+the QoS controller, the departed tenants and every tenant's manager.
 """
 from __future__ import annotations
 
 import dataclasses
+import pickle
 
 import numpy as np
 import torch
 
 from repro_torch.core.incremental import Trainer
 from repro_torch.core.model_table import ModelTable
-from repro_torch.core.policy import PredictionFrequencyTable
 from repro_torch.device import resolve_device
+from repro_torch.uvm import registry as _registry
 from repro_torch.uvm.manager.core import (
     INTERVAL_FAULTS,
     EvalRequest,
@@ -65,13 +69,11 @@ from repro_torch.uvm.manager.core import (
     Outcomes,
     OversubscriptionManager,
     TrainRequest,
+    _cfg_signature,
 )
+from repro_torch.uvm.manager.snapshot import STATE_VERSION
 
 _UNSET = object()
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP A4)")
 
 
 @dataclasses.dataclass
@@ -127,7 +129,7 @@ class _SharedFreqTableView:
     global fault clock, and applying each would flush the one table once
     per tenant)."""
 
-    def __init__(self, table: PredictionFrequencyTable):
+    def __init__(self, table):
         self._table = table
 
     def update(self, blocks) -> None:
@@ -183,16 +185,14 @@ class TenantMux:
         qos=None,
         device: str | torch.device = "cuda",
     ):
-        if (cfg.classifier, cfg.freq_table) != ("dfa", "setassoc"):
-            raise _unported(f"the component registry (classifier {cfg.classifier!r}, freq_table "
-                            f"{cfg.freq_table!r}; only 'dfa' / 'setassoc' are builtin)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.shared_freq_table = shared_freq_table
         self.auto_create = auto_create
         self._tables = tables
         self.trainer = trainer if trainer is not None else Trainer(cfg.predictor, cfg.train, cfg.kind, self.device)
-        self._shared_freq = PredictionFrequencyTable(device=self.device) if shared_freq_table else None
+        self._shared_freq = (_registry.freq_table_factory(cfg.freq_table)(device=self.device)
+                             if shared_freq_table else None)
         self.qos = qos
         self.managers: dict = {}
         # released tenants' final counts, so departure keeps them in the views
@@ -270,7 +270,9 @@ class TenantMux:
 
     def observe(self, batch: FaultBatch) -> MuxActions:
         """One full round: demux, per-tenant classify, one batched predictor
-        dispatch, combined actions."""
+        dispatch, combined actions.  With ``cfg.health`` set, a failed
+        batched dispatch demotes every tenant that dispatched: they all fall
+        back this round."""
         pairs, evals = self.observe_requests(batch)
         out: list | BaseException = []
         if evals:
@@ -278,7 +280,7 @@ class TenantMux:
                 out = self.trainer.evaluate_many(
                     [r.params for _, r in evals], [r.fs for _, r in evals], [r.n_active for _, r in evals],
                 )
-            except Exception as exc:  # noqa: BLE001 — observe_apply re-raises it (no health machine)
+            except Exception as exc:  # noqa: BLE001 — degraded mode absorbs anything
                 out = exc
         return self.observe_apply(pairs, evals, out)
 
@@ -292,7 +294,9 @@ class TenantMux:
 
     def observe_apply(self, pairs, evals, out) -> MuxActions:
         """Fold ``evaluate_many``'s results (aligned with ``evals``) into
-        :meth:`observe_finish`; an exception from it is raised again."""
+        :meth:`observe_finish`.  ``out`` may be the exception it raised:
+        with ``cfg.health`` set it demotes every tenant that dispatched,
+        without it it is raised again."""
         dispatched = {id(r) for _, r in evals}
         if isinstance(out, BaseException):
             if self.cfg.health is None:
@@ -310,15 +314,21 @@ class TenantMux:
     def feedback(self, outcomes: Outcomes, *, tenant=_UNSET) -> None:
         """Close the last round (or one tenant's pending batch): split the
         outcome report, advance every observed tenant's fault clock, send the
-        fine-tunes through one ``train_group_many`` call."""
+        fine-tunes through one ``train_group_many`` call.  With
+        ``cfg.health`` set, a failed batched fine-tune demotes every tenant
+        whose fine-tune was staged (their entry updates are lost; the rounds
+        still close)."""
         pairs, treqs = self.feedback_requests(outcomes, tenant=tenant)
         exc = None
+        # dispatch even with zero staged fine-tunes: a chaos-wrapped trainer
+        # draws its RNG per call, so skipping the empty call would shift
+        # every later injection of a seeded schedule
         try:
             self.trainer.train_group_many(
                 [r.entry for _, r in treqs], [r.fs for _, r in treqs], [r.n_active for _, r in treqs],
                 in_et_list=[r.in_et for _, r in treqs], use_lucir=self.cfg.use_lucir,
             )
-        except Exception as e:  # noqa: BLE001 — feedback_apply re-raises it (no health machine)
+        except Exception as e:  # noqa: BLE001
             exc = e
         self.feedback_apply(pairs, treqs, exc)
 
@@ -331,8 +341,10 @@ class TenantMux:
         return pairs, treqs
 
     def feedback_apply(self, pairs, treqs, exc) -> None:
-        """Publish the fine-tuned entries (updated in place); an exception
-        from ``train_group_many`` is raised again."""
+        """Publish the fine-tuned entries (updated in place).  ``exc`` is the
+        exception ``train_group_many`` raised, if any: with ``cfg.health``
+        set it demotes every tenant whose fine-tune was staged, without it
+        it is raised again."""
         if exc is not None:
             if self.cfg.health is None:
                 raise exc
@@ -417,13 +429,57 @@ class TenantMux:
             if entry is not None:
                 self.managers[k].feedback_finish(entry)
 
-    # -- snapshots (not ported) --------------------------------------------------
+    # -- snapshot / restore --------------------------------------------------
 
     def state(self) -> dict:
-        raise _unported("TenantMux.state (manager/snapshot.py)")
+        """Host-side snapshot of the whole mux: the shared frequency table
+        (serialised once; per-tenant states skip it), the mux-owned flush
+        clock, the dispatch-order accuracy log, the QoS controller, the
+        departed tenants and every tenant's manager state in admission
+        order.  Raises while an observe round or any tenant batch is
+        pending."""
+        if self._round is not None:
+            raise RuntimeError("cannot snapshot mid-round; feedback() the open observe first")
+        for k, m in self.managers.items():
+            if m._pending is not None:
+                raise RuntimeError(f"cannot snapshot: tenant {k!r} has a pending batch")
+        return {
+            "version": STATE_VERSION,
+            "cfg_sig": _cfg_signature(self.cfg),
+            "shared_freq_table": self.shared_freq_table,
+            "shared_freq": pickle.dumps(self._shared_freq) if self._shared_freq is not None else None,
+            "clock": (self._fault_base, self._fault_raw, self._flush_interval),
+            "per_group": list(self.per_group),
+            "qos": self.qos.state() if self.qos is not None else None,
+            "departed": {k: dict(v) for k, v in self._departed.items()},
+            "tenants": [(k, m.state(include_freq_table=self._shared_freq is None)) for k, m in self.managers.items()],
+        }
 
     def restore(self, state: dict) -> None:
-        raise _unported("TenantMux.restore (manager/snapshot.py)")
+        """Inverse of :meth:`state`: rebuilds every tenant's manager (same
+        config, same shared-table topology, on this mux's device) and
+        restores each one."""
+        if state.get("version") != STATE_VERSION:
+            raise ValueError(f"snapshot state version {state.get('version')!r} != supported {STATE_VERSION}")
+        if state.get("cfg_sig") != _cfg_signature(self.cfg):
+            raise ValueError("snapshot was taken under a different ManagerConfig; "
+                             "restore requires an identically-configured mux")
+        if state.get("shared_freq_table") != self.shared_freq_table:
+            raise ValueError("snapshot and mux disagree on shared_freq_table topology")
+        if state["shared_freq"] is not None:
+            ft = pickle.loads(state["shared_freq"])
+            self._shared_freq = ft.to(self.device) if hasattr(ft, "to") else ft
+        self._fault_base, self._fault_raw, self._flush_interval = state["clock"]
+        self.per_group = list(state["per_group"])
+        # a budgeted mux restores its controller when the snapshot has one
+        if self.qos is not None and state.get("qos") is not None:
+            self.qos.restore(state["qos"])
+        self._departed = {k: dict(v) for k, v in state.get("departed", {}).items()}
+        self.managers = {}
+        for k, mstate in state["tenants"]:
+            self._create(k).restore(mstate)  # views rebind to the restored shared table
+        self._round = None
+        self._last_feedback = []
 
     # -- combined artifacts ------------------------------------------------------
 
@@ -500,3 +556,21 @@ class TenantMux:
         out = {str(k): d["top1"] for k, d in self._departed.items()}
         out.update({str(k): m.top1 for k, m in self.managers.items()})
         return out
+
+    # -- health views ------------------------------------------------------------
+
+    @property
+    def n_health_faults(self) -> int:
+        return sum(m.n_health_faults for m in self.managers.values())
+
+    @property
+    def n_fallbacks(self) -> int:
+        return sum(m.n_fallbacks for m in self.managers.values())
+
+    @property
+    def n_recoveries(self) -> int:
+        return sum(m.n_recoveries for m in self.managers.values())
+
+    @property
+    def health_states(self) -> dict:
+        return {str(k): m.health_state for k, m in self.managers.items()}

@@ -23,8 +23,8 @@ owns a block.  Three pieces sit between the
 
 Block ownership is learned first-toucher from the observed fault stream;
 :meth:`BudgetController.release` returns a departed tenant's claim to the
-pool.  The controller's snapshots (``state``/``restore``) come with the
-manager's (ROADMAP A4).
+pool.  :meth:`BudgetController.state` / :meth:`BudgetController.restore`
+snapshot the controller as host data; ``TenantMux.state`` carries it.
 """
 from repro_torch.uvm.qos.budget import BudgetController, QosTier
 from repro_torch.uvm.qos import stability as stability  # noqa: F401  (registers builtins)

@@ -177,3 +177,28 @@ class BudgetController:
         pref[resident & owned & over[np.clip(owner, 0, None)]] = -1
         pref[resident & ~owned] = -1
         return pref
+
+    # -- snapshot / restore ----------------------------------------------------
+
+    def state(self) -> dict:
+        """Host-side snapshot (the scorer is rebuilt by name on restore)."""
+        return {
+            "stability": self.stability,
+            "interval": self.interval,
+            "round": self._round,
+            "block_owner": self.block_owner.copy(),
+            "index": dict(self._index),
+            "tiers": {k: (t.floor, t.share) for k, t in self._tier.items()},
+            "hist": {k: list(v) for k, v in self._hist.items()},
+        }
+
+    def restore(self, state: dict) -> None:
+        self.stability = state["stability"]
+        self._scorer = _registry.stability_factory(self.stability)()
+        self.interval = state["interval"]
+        self._round = state["round"]
+        self.block_owner = np.asarray(state["block_owner"], np.int32).copy()
+        self._index = dict(state["index"])
+        self._tier = {k: QosTier(f, s) for k, (f, s) in state["tiers"].items()}
+        self._hist = {k: list(v) for k, v in state["hist"].items()}
+        self._recompute()

@@ -31,8 +31,6 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-import io
-import pickle
 from pathlib import Path
 
 import numpy as np
@@ -45,7 +43,6 @@ from repro_torch.core.incremental import TrainConfig, Trainer
 from repro_torch.core.model_table import ModelTable
 from repro_torch.core.pattern import PatternClassifier
 from repro_torch.device import resolve_device
-from repro_torch.optim.adamw import OptState
 from repro_torch.uvm import simulator as S
 from repro_torch.uvm import timing
 from repro_torch.uvm.manager import FaultBatch, ManagerConfig, Outcomes, OversubscriptionManager, TenantMux
@@ -93,35 +90,16 @@ def _pretrain_cache_key(corpus, pcfg, tcfg, kind, target_acc, max_rounds) -> str
     return h.hexdigest()[:16]
 
 
-class _MemoUnpickler(pickle.Unpickler):
-    """Unpickles a JAX-package memo without importing that package: every
-    ``repro.*`` global maps to the port's own class."""
-
-    REMAP = {("repro.optim.adamw", "OptState"): OptState}
-
-    def find_class(self, module, name):
-        if module == "repro" or module.startswith("repro."):
-            try:
-                return self.REMAP[(module, name)]
-            except KeyError:
-                raise pickle.UnpicklingError(f"no port-side class for {module}.{name}") from None
-        return super().find_class(module, name)
-
-
-def _unpickle(data: bytes):
-    return _MemoUnpickler(io.BytesIO(data)).load()
-
-
 def load_pretrain_memo(path: str | Path, pcfg: PredictorConfig, device: str | torch.device = "cuda",
                        fresh: dict | None = None) -> ModelTable:
     """A JAX-package pretrain memo (``experiments/cache/pretrain_*.pkl``, the
     raw host table or its checksummed envelope) as a table on ``device``;
     ``fresh`` as in :func:`repro_torch.convert.table_from_blob`."""
-    obj = _unpickle(Path(path).read_bytes())
+    obj = convert.unpickle_jax(Path(path).read_bytes())
     if isinstance(obj, dict) and "sha256" in obj and "payload" in obj:
         if hashlib.sha256(obj["payload"]).hexdigest() != obj["sha256"]:
             raise ValueError(f"pretrain memo {path} fails its checksum")
-        obj = _unpickle(obj["payload"])
+        obj = convert.unpickle_jax(obj["payload"])
     return convert.table_from_blob(obj, pcfg, device, fresh)
 
 

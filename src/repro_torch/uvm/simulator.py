@@ -19,9 +19,19 @@ prefetches through :func:`apply_prefetch`) and ``tree``, NVIDIA's
 tree-based neighbourhood prefetcher: on a fault, every [2, 4, 8, 16,
 32]-block node around the faulted block that is more than half resident
 (the faulted block counted) migrates its remaining valid blocks.  Every
-node lies inside the faulted block's 2MB chunk, so the tree step works on
-that 32-block slice of the state.  As in the reference, the tree's mask
-does not exclude pinned blocks (``apply_prefetch``'s does).
+node lies inside the faulted block's 2MB chunk, so the builtin tree step
+works on that 32-block slice of the state.  As in the reference, the
+tree's mask does not exclude pinned blocks (``apply_prefetch``'s does).
+
+Every policy and prefetcher, builtins included, is an entry of
+:mod:`repro_torch.uvm.registry` (registered at the end of this module in
+the reference's order, so the ids match): a policy is its key builder
+``key_fn(state, interval_now, t_now)``, a prefetcher its mask builder
+``mask_fn(resident, blk, valid, n_blocks)``.  A registered prefetcher's
+mask migrates on every faulting event exactly what the reference's scan
+migrates; the builtin ``tree`` keeps its chunk-sliced step
+(:func:`_tree_migrate`), which :func:`_tree_mask` (the reference's
+whole-state mask) reproduces bit for bit.
 
 :func:`run` and :func:`run_batch` drive a whole trace (``run_batch`` runs
 its cells one after another; the reference's batched lanes are
@@ -54,12 +64,17 @@ from repro_torch import random as jrandom
 from repro_torch.device import resolve_device
 from repro_torch.kernels.evict_select import evict_select
 from repro_torch.util import pow2_bucket
+from repro_torch.uvm import registry as _registry
+from repro_torch.uvm.registry import POLICY_IDS, PREFETCH_IDS
 from repro_torch.uvm.trace import PAGES_PER_BLOCK, Trace
 
 CHUNK_BLOCKS = 32  # 2MB chunk = 32 x 64KB blocks
 INTERVAL = 64  # page-set-chain interval, in faults (same as HPE)
 NO_USE = np.int32(2**31 - 1)
 
+# The builtin strategy set (the paper's matrix).  The live set, builtins
+# plus registrations, is registry.policy_names()/prefetcher_names();
+# POLICY_IDS/PREFETCH_IDS always reflect it.
 POLICIES = ("lru", "random", "belady", "hpe", "learned")
 PREFETCHERS = ("demand", "tree", "none")
 TREE_SIZES = (2, 4, 8, 16, CHUNK_BLOCKS)
@@ -259,29 +274,27 @@ def _age(state: SimState, interval_now):
     return torch.clamp(interval_now - state.last_interval, 0, 2)  # 0=new..2=old
 
 
-def _lru_keys(state: SimState, interval_now):
+def _lru_keys(state: SimState, interval_now, t_now):
     return (state.last_access,)
 
 
-def _belady_keys(state: SimState, interval_now):
+def _belady_keys(state: SimState, interval_now, t_now):
     return (-state.next_use,)  # farthest next use evicted first
 
 
-def _hpe_keys(state: SimState, interval_now):
+def _hpe_keys(state: SimState, interval_now, t_now):
     return (-_age(state, interval_now), state.last_access)
 
 
-def _learned_keys(state: SimState, interval_now):
+def _learned_keys(state: SimState, interval_now, t_now):
     return (-_age(state, interval_now), state.freq, state.last_access)
 
-
-POLICY_KEYS = {"lru": _lru_keys, "belady": _belady_keys, "hpe": _hpe_keys, "learned": _learned_keys}
 
 #: events per host batch of the random policy's draws
 _RANDOM_CHUNK = 2048
 
 
-def _random_keys(state: SimState, t_now: np.ndarray) -> torch.Tensor:
+def _random_draws(state: SimState, t_now: np.ndarray) -> torch.Tensor:
     """The random policy's victim key of each step at times ``t_now``
     (host ints): ``randint(fold_in(key, t), (NB,), 0, 1 << 30)`` per step,
     drawn on the host in batches and staged on the state's device, int32
@@ -293,31 +306,58 @@ def _random_keys(state: SimState, t_now: np.ndarray) -> torch.Tensor:
     return torch.cat(rows).to(state.device) if rows else torch.zeros((0, nb), dtype=_I32, device=state.device)
 
 
-def _check_cell(policy: str, prefetch: str = "demand") -> None:
-    if policy not in POLICIES:
-        raise NotImplementedError(f"eviction policy {policy!r} is not ported (ported: {POLICIES})")
-    if prefetch not in PREFETCHERS:
-        raise NotImplementedError(f"prefetcher {prefetch!r} is not ported (ported: {PREFETCHERS})")
+def _random_keys(state: SimState, interval_now, t_now):
+    """The ``random`` policy's key builder for one step (one host read of
+    ``t_now``).  The event loop does not call it: it draws a whole
+    segment's keys at once (:func:`_random_draws`)."""
+    return (_random_draws(state, [int(t_now)])[0],)
 
 
-def _evict_fit(state: SimState, capacity: int, policy: str, protect: int | None, interval_now,
+def _policy_fn(policy: str):
+    """The registered key builder of ``policy`` (``KeyError`` if it is not
+    registered, as the reference's id lookup raises)."""
+    return _registry.policy_branches()[POLICY_IDS[policy]]
+
+
+def _evict_fit(state: SimState, capacity: int, key_fn, protect: int | None, interval_now, t_now,
                evict_pref=None, rand: torch.Tensor | None = None) -> None:
     """Evict lowest-priority resident blocks until occupancy <= capacity, in
     place.  One victim-selection call takes all
-    ``min(max(occ - capacity, 0), |candidates|)`` victims; ``evict_pref``
-    (int32 per block, optional) is the leading key; ``rand`` is the random
-    policy's key for this step (:func:`_random_keys`)."""
+    ``min(max(occ - capacity, 0), |candidates|)`` victims of the keys
+    ``key_fn(state, interval_now, t_now)`` returns; ``evict_pref`` (int32
+    per block, optional) is the leading key; ``rand`` is the random
+    policy's key for this step (:func:`_random_draws`), used in place of
+    ``key_fn``'s."""
     cand = state.resident & ~state.pinned
     if protect is not None:
         cand[protect] = False
-    keys = (rand,) if policy == "random" else POLICY_KEYS[policy](state, interval_now)
+    if rand is not None:
+        keys = (rand,)
+    else:
+        keys = tuple(key_fn(state, interval_now, t_now))
+        if not 1 <= len(keys) <= 3:
+            raise ValueError(f"policy key_fn must return 1-3 keys, got {len(keys)}")
+        keys = tuple(torch.as_tensor(k, device=state.device).to(_I32) for k in keys)
     if evict_pref is not None:
-        keys = (evict_pref,) + tuple(keys)
+        keys = (evict_pref,) + keys
     n_evict = torch.minimum(torch.clamp(state.occupancy - capacity, min=0), cand.sum(dtype=_I32))
-    vict = evict_select(cand, tuple(keys), n_evict)
+    vict = evict_select(cand, keys, n_evict)
     state.resident &= ~vict
     state.evicted_once |= vict
     state.occupancy -= vict.sum(dtype=_I32)
+
+
+def _tree_mask(resident, blk, valid, n_blocks: int):
+    """Blocks to prefetch per the tree-based neighbourhood prefetcher, over
+    the whole state (the reference's mask builder; the builtin ``tree``
+    runs the chunk-sliced :func:`_tree_migrate` instead)."""
+    iota = torch.arange(n_blocks, device=resident.device)
+    mask = torch.zeros(n_blocks, dtype=torch.bool, device=resident.device)
+    for size in TREE_SIZES:
+        node = blk // size
+        occ = resident.reshape(-1, size).sum(dim=1)[node]
+        mask |= ((iota // size) == node) & (occ * 2 > size)  # >50% of the node valid
+    return mask & valid & ~resident
 
 
 class _Tree(NamedTuple):
@@ -334,12 +374,57 @@ class _Tree(NamedTuple):
     learned: bool  # the learned policy's chain also sees prefetched blocks
 
 
-def _tree(n_blocks: int, n_valid: int, policy: str, dev) -> _Tree:
+class _Mask(NamedTuple):
+    """A registered prefetcher's mask builder and its device constants."""
+
+    fn: object  # mask_fn(resident, blk, valid, n_blocks) -> bool (NB,)
+    valid: torch.Tensor  # bool (NB,) block < n_valid
+    learned: bool
+
+
+def _tree(n_blocks: int, n_valid: int, learned: bool, dev) -> _Tree:
     j = np.arange(CHUNK_BLOCKS)
     node = np.stack([j[None, :] // s == j[:, None] // s for s in TREE_SIZES], axis=1)
     return _Tree(torch.tensor(node, device=dev), torch.eye(CHUNK_BLOCKS, dtype=torch.bool, device=dev),
                  torch.tensor(TREE_SIZES, dtype=_I32, device=dev),
-                 torch.arange(n_blocks, device=dev) < n_valid, n_valid, policy == "learned")
+                 torch.arange(n_blocks, device=dev) < n_valid, n_valid, learned)
+
+
+def _prefetcher(policy: str, prefetch: str, n_blocks: int, n_valid: int, dev) -> _Tree | _Mask | None:
+    """The segment's prefetch step: ``None`` (demand only), the builtin
+    tree's chunk constants, or a registered mask builder.  Only the
+    ``learned`` policy's page-set chain sees prefetched blocks, as in the
+    reference (its id 4)."""
+    pid = PREFETCH_IDS[prefetch]
+    fn = _registry.prefetch_branches()[pid]
+    if fn is None:
+        return None
+    learned = POLICY_IDS[policy] == POLICY_IDS["learned"]
+    if pid == PREFETCH_IDS["tree"]:
+        return _tree(n_blocks, n_valid, learned, dev)
+    return _Mask(fn, torch.arange(n_blocks, device=dev) < n_valid, learned)
+
+
+def _mask_migrate(state: SimState, pfx: _Mask, b: int, fault, t_first, interval_now):
+    """A registered prefetcher's migration for one event on block ``b``, in
+    place, as the reference's scan does it: the faulted block and, if it
+    faulted, the mask builder's blocks (given the residency with the
+    faulted block in).  Returns the number of migrated blocks that had been
+    evicted before."""
+    nb = state.resident.shape[0]
+    demand = torch.zeros(nb, dtype=torch.bool, device=state.device)
+    demand[b] = fault
+    pf = pfx.fn(state.resident | demand, b, pfx.valid, nb) & fault
+    newly = (demand | pf) & ~state.resident
+    n_new = newly.sum(dtype=_I32)
+    thrash = (newly & state.evicted_once).sum(dtype=_I32)
+    state.resident |= newly
+    state.occupancy += n_new
+    state.migrations += n_new
+    state.last_access.copy_(torch.where(newly, t_first, state.last_access))
+    if pfx.learned:
+        state.last_interval.copy_(torch.where(newly, interval_now, state.last_interval))
+    return thrash
 
 
 def _tree_migrate(state: SimState, tree: _Tree, b: int, fault, t_first, interval_now):
@@ -375,17 +460,19 @@ def _tree_migrate(state: SimState, tree: _Tree, b: int, fault, t_first, interval
 
 
 def _scan_events(state: SimState, ev: Events, capacity: int, policy: str, evict_pref=None,
-                 tree: _Tree | None = None) -> dict:
+                 pfx: _Tree | _Mask | None = None) -> dict:
     """Walk the compressed event stream, updating ``state`` in place, with
-    demand migration, or the tree prefetcher's when ``tree`` is given.
+    demand migration, the builtin tree's (``pfx`` a :class:`_Tree`) or a
+    registered prefetcher's (``pfx`` a :class:`_Mask`).
 
     Returns per-event device tensors (``fault``, ``thrash``,
     ``was_evicted``) and ``pfault`` (a scalar: did any periodic aggregate
     fault?).  Every value stays on the device; the caller syncs once."""
     dev = state.device
     t0 = state.time.clone()
+    key_fn = _policy_fn(policy)
     # the random policy's keys depend on each event's time: one host read
-    rand = _random_keys(state, int(t0) + ev.dt) if policy == "random" else None
+    rand = _random_draws(state, int(t0) + ev.dt) if key_fn is _random_keys else None
     faults, thrashes, was_ev = [], [], []
     pfault = torch.zeros((), dtype=torch.bool, device=dev)
     for i, (b, nx, d, r, sd) in enumerate(zip(ev.blk.tolist(), ev.nxt.tolist(), ev.dt.tolist(), ev.rl.tolist(),
@@ -398,15 +485,17 @@ def _scan_events(state: SimState, ev: Events, capacity: int, policy: str, evict_
         fault_i = fault.to(_I32)
         interval_now = torch.div(state.fault_count, INTERVAL, rounding_mode="floor")
         fc_after = state.fault_count + fault_i
-        if tree is None:
+        if pfx is None:
             thrash = fault_i * evicted_before.to(_I32)
             # demand migration: the faulted block comes in; it ends the run
             # at its last touch and is protected during its own step
             state.resident[b] |= fault
             state.occupancy += fault_i
             state.migrations += fault_i
+        elif isinstance(pfx, _Tree):
+            thrash = _tree_migrate(state, pfx, b, fault, t_first, interval_now)
         else:
-            thrash = _tree_migrate(state, tree, b, fault, t_first, interval_now)
+            thrash = _mask_migrate(state, pfx, b, fault, t_first, interval_now)
         state.fault_count.copy_(fc_after)
         state.thrash_events += thrash
         state.faults += fault_i
@@ -416,7 +505,8 @@ def _scan_events(state: SimState, ev: Events, capacity: int, policy: str, evict_
         # land in the NEXT interval (the reference updates per access)
         state.last_interval[b] = torch.div(fc_after, INTERVAL, rounding_mode="floor") if r > 1 else interval_now
         state.next_use[b] = nx
-        _evict_fit(state, capacity, policy, b, interval_now, evict_pref, None if rand is None else rand[i])
+        _evict_fit(state, capacity, key_fn, b, interval_now, t_first, evict_pref,
+                   None if rand is None else rand[i])
         state.time.copy_(t_last + 1)
         faults.append(fault)
         thrashes.append(thrash)
@@ -466,19 +556,18 @@ def run_segment(
     equal the per-access reference.  ``n_valid`` (the real block count)
     only matters to the ``tree`` prefetcher, which never fetches a block
     past it.  ``evict_pref`` (int32 per block on the state's device, or
-    ``None``) is the leading victim key for the whole segment."""
-    _check_cell(policy, prefetch)
+    ``None``) is the leading victim key for the whole segment.  An
+    unregistered policy or prefetcher raises ``KeyError``."""
+    _policy_fn(policy), PREFETCH_IDS[prefetch]  # an unregistered name raises KeyError
     blocks = np.asarray(blocks)
     next_use = np.asarray(next_use)
-    tree = None
-    if prefetch == "tree" and len(blocks):
-        tree = _tree(state.resident.shape[0], int(n_valid), policy, state.device)
+    pfx = _prefetcher(policy, prefetch, state.resident.shape[0], int(n_valid), state.device) if len(blocks) else None
     for periodic in (True, False):
         ev = compress_events(blocks, next_use, periodic=periodic)
         if ev.n_access == 0:
             return state, _empty_outs()
         st = state.clone()
-        outs = _scan_events(st, ev, int(capacity), policy, evict_pref, tree)
+        outs = _scan_events(st, ev, int(capacity), policy, evict_pref, pfx)
         if periodic and (ev.stride > 1).any() and bool(outs["pfault"]):
             continue  # divergence: a merged occurrence may have faulted
         if not want_outs:
@@ -492,7 +581,7 @@ def apply_prefetch(state: SimState, blocks_mask: torch.Tensor, *, capacity: int,
     """Stage externally-predicted prefetches (the learned runtime's async
     path): migrate the masked blocks, then evict back to capacity.
     Returns a new state."""
-    _check_cell(policy)
+    key_fn = _policy_fn(policy)
     st = state.clone()
     newly = blocks_mask & ~st.resident & ~st.pinned
     n_new = newly.sum(dtype=_I32)
@@ -504,8 +593,7 @@ def apply_prefetch(state: SimState, blocks_mask: torch.Tensor, *, capacity: int,
     st.migrations += n_new
     st.last_interval = torch.where(newly, interval_now, st.last_interval)
     st.last_access = torch.where(newly, st.time, st.last_access)
-    rand = _random_keys(st, [int(st.time)])[0] if policy == "random" else None
-    _evict_fit(st, int(capacity), policy, None, interval_now, evict_pref, rand)
+    _evict_fit(st, int(capacity), key_fn, None, interval_now, st.time, evict_pref)
     return st
 
 
@@ -545,7 +633,7 @@ def run(
     """Run a full trace under (policy x prefetch) at an oversubscription
     level, from ``state`` (on its own device) or a fresh state on
     ``device`` (``seed``: the random policy's key)."""
-    _check_cell(policy, prefetch)
+    assert policy in POLICY_IDS and prefetch in PREFETCH_IDS, (policy, prefetch)
     if state is None:
         state = init_state(bucket_blocks(trace.n_blocks), device, seed)
     st, outs = run_segment(
@@ -565,7 +653,7 @@ def run_batch(trace: Trace, cells: list[tuple[str, str, float]], *, seed: int = 
     :func:`run`.  ``seeds`` (one per cell, else ``seed`` for every cell)
     key the random policy."""
     for policy, prefetch, _ in cells:
-        _check_cell(policy, prefetch)
+        assert policy in POLICY_IDS and prefetch in PREFETCH_IDS, (policy, prefetch)
     device = resolve_device(device)
     blocks = trace.block.astype(np.int32)
     nxt = next_use_for(trace)
@@ -576,3 +664,18 @@ def run_batch(trace: Trace, cells: list[tuple[str, str, float]], *, seed: int = 
                             policy=policy, prefetch=prefetch, n_valid=trace.n_blocks, want_outs=False)
         states.append(st)
     return [state_stats(st) for st in states]
+
+
+# --- builtin registrations -----------------------------------------------------
+# The paper's strategy matrix enters the same registry a plug-in does, in
+# the reference's order, so the ids (lru=0 .. learned=4, demand=0, tree=1,
+# none->demand) are the reference's.  Guarded for importlib.reload.
+if "lru" not in POLICY_IDS:
+    _registry.register_policy("lru", _lru_keys)
+    _registry.register_policy("random", _random_keys)
+    _registry.register_policy("belady", _belady_keys)
+    _registry.register_policy("hpe", _hpe_keys)
+    _registry.register_policy("learned", _learned_keys)
+    _registry.register_prefetcher("demand", None)
+    _registry.register_prefetcher("tree", _tree_mask)
+    _registry.register_prefetcher("none", alias_of="demand")

@@ -1,6 +1,6 @@
 """Memory-access traces + synthetic generators for the paper's 11 benchmarks
 (the port's copy of ``repro.uvm.trace``, with its Section V-F concurrent
-merge; the fault-log interchange is not ported yet).
+merge and its versioned JSONL fault-log interchange, byte for byte).
 
 The paper traces real CUDA benchmarks under GPGPU-Sim; without a GPU we
 generate seeded synthetic traces whose *structure* matches the published
@@ -32,11 +32,16 @@ interleave idiom periodic is what makes streaming sweeps fast.
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import numpy as np
 
 PAGE_SIZE = 4096
 PAGES_PER_BLOCK = 16  # 64KB basic block
+
+#: external UVM fault-log interchange schema (see :func:`to_fault_log`)
+FAULT_LOG_VERSION = 1
+_FAULT_LOG_MAGIC = "# uvm-fault-log"
 
 
 @dataclasses.dataclass
@@ -390,3 +395,122 @@ def concurrent(traces: list[Trace], seed: int = 0, slice_len: int = 256,
     cat = lambda chunks: (np.concatenate(chunks) if chunks else np.zeros(0, np.int64)).astype(np.int32)
     return Trace("+".join(t.name for t in traces), cat(page), cat(pc), cat(tb), cat(kern), offset,
                  tenant=cat(tnt), tenant_names=tuple(t.name for t in traces))
+
+
+# ---------------------------------------------------------------------------
+# External UVM fault-log interchange (versioned JSONL).
+# ---------------------------------------------------------------------------
+
+
+def to_fault_log(trace: Trace, path, batch: int = 256) -> int:
+    """Export a trace as a versioned JSONL UVM fault log; returns the number
+    of data lines written.
+
+    The format is exactly what the reference's ``python -m repro.uvm.cli
+    serve`` consumes, so an exported (or externally captured) log replays
+    through a live streaming manager unmodified (host-only work).  A log holds:
+
+    * one header COMMENT line carrying the schema version and trace metadata
+      (``serve`` skips ``#`` lines)::
+
+          # uvm-fault-log v1 {"name": ..., "n_pages": ..., "tenant_names": [...]}
+
+    * one JSON object per fault batch: ``{"pages": [...], "pc": [...],
+      "tb": [...], "kernel": [...]}`` plus ``"tenant": <index into
+      tenant_names>`` on tenant-tagged traces.  Batches never straddle a
+      tenant boundary, so each line is one tenant's coherent burst.
+
+    ``path`` is a filesystem path or any text file object.
+    :func:`from_fault_log` is the exact inverse (bit-identical round trip).
+    """
+    fh = open(path, "w") if isinstance(path, (str, bytes)) or hasattr(path, "__fspath__") else path
+    try:
+        meta = {"name": trace.name, "n_pages": int(trace.n_pages),
+                "tenant_names": list(trace.tenant_names)}
+        fh.write(f"{_FAULT_LOG_MAGIC} v{FAULT_LOG_VERSION} "
+                 f"{json.dumps(meta, separators=(',', ':'))}\n")
+        # split first at tenant-change boundaries, then at the batch size
+        n = len(trace)
+        if trace.tenant is not None and n:
+            bounds = [0, *(np.flatnonzero(np.diff(trace.tenant)) + 1).tolist(), n]
+        else:
+            bounds = [0, n] if n else [0]
+        lines = 0
+        for b0, b1 in zip(bounds, bounds[1:]):
+            for lo in range(b0, b1, batch):
+                hi = min(lo + batch, b1)
+                rec = {
+                    "pages": trace.page[lo:hi].tolist(),
+                    "pc": trace.pc[lo:hi].tolist(),
+                    "tb": trace.tb[lo:hi].tolist(),
+                    "kernel": trace.kernel[lo:hi].tolist(),
+                }
+                if trace.tenant is not None:
+                    rec["tenant"] = int(trace.tenant[lo])
+                fh.write(json.dumps(rec, separators=(",", ":")) + "\n")
+                lines += 1
+        return lines
+    finally:
+        if fh is not path:
+            fh.close()
+
+
+def from_fault_log(path) -> Trace:
+    """Rebuild a :class:`Trace` from a versioned JSONL UVM fault log (the
+    inverse of :func:`to_fault_log`; also accepts hand-written or externally
+    captured logs that follow the schema).  ``path`` is a filesystem path or
+    any text file object.  Raises ``ValueError`` on a missing/unsupported
+    header or malformed records — ingestion fails loudly, a serving
+    replay is where per-line fault tolerance lives."""
+    fh = open(path) if isinstance(path, (str, bytes)) or hasattr(path, "__fspath__") else path
+    try:
+        meta = None
+        page, pc, tb, kern, tnt = [], [], [], [], []
+        tagged = False
+        for lineno, line in enumerate(fh, 1):
+            line = line.strip()
+            if not line:
+                continue
+            if line.startswith("#"):
+                if meta is None and line.startswith(_FAULT_LOG_MAGIC):
+                    head = line[len(_FAULT_LOG_MAGIC):].strip().split(None, 1)
+                    if not head or head[0] != f"v{FAULT_LOG_VERSION}":
+                        raise ValueError(
+                            f"unsupported fault-log version {head[0] if head else '?'!r} "
+                            f"(supported: v{FAULT_LOG_VERSION})"
+                        )
+                    meta = json.loads(head[1]) if len(head) > 1 else {}
+                continue
+            if meta is None:
+                raise ValueError(f"not a uvm-fault-log: line {lineno} precedes the "
+                                 f"'{_FAULT_LOG_MAGIC} v{FAULT_LOG_VERSION}' header")
+            rec = json.loads(line)
+            pages = rec["pages"]
+            n = len(pages)
+            page.append(np.asarray(pages, np.int32))
+            pc.append(np.asarray(rec.get("pc", [0] * n), np.int32))
+            tb.append(np.asarray(rec.get("tb", [0] * n), np.int32))
+            kern.append(np.asarray(rec.get("kernel", [0] * n), np.int32))
+            if "tenant" in rec:
+                tagged = True
+                tnt.append(np.full(n, int(rec["tenant"]), np.int32))
+            if tagged and len(tnt) != len(page):
+                raise ValueError(f"line {lineno}: mixed tagged/untagged batches "
+                                 f"(a tenant-tagged log must tag every batch)")
+        if meta is None:
+            raise ValueError(f"not a uvm-fault-log: missing '{_FAULT_LOG_MAGIC}' header line")
+        cat = lambda chunks: np.concatenate(chunks) if chunks else np.zeros(0, np.int32)
+        pages = cat(page)
+        return Trace(
+            meta.get("name", "fault-log"),
+            pages,
+            cat(pc),
+            cat(tb),
+            cat(kern),
+            int(meta.get("n_pages", int(pages.max()) + 1 if len(pages) else 1)),
+            tenant=cat(tnt) if tagged else None,
+            tenant_names=tuple(meta.get("tenant_names", ())),
+        )
+    finally:
+        if fh is not path:
+            fh.close()

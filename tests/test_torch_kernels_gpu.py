@@ -726,3 +726,70 @@ def test_tagged_run_ours_on_the_card_equals_the_cpu(dev, kw):
     fields = ("stats", "top1", "warm_top1", "per_group_acc", "n_predictions", "per_tenant_top1", "per_tenant_stats")
     assert [getattr(got, f) for f in fields] == [getattr(want, f) for f in fields]
     assert min(launched.values()) > 0, launched
+
+
+def _manager_stream(mgr, trace, groups, g_size=256):
+    """Observe/feedback ``groups`` of ``trace`` through ``mgr``; its actions
+    as host tuples (the decision stream)."""
+    from repro_torch.uvm.manager import FaultBatch, Outcomes
+
+    out = []
+    for g in groups:
+        g0, g1 = g * g_size, min((g + 1) * g_size, len(trace))
+        a = mgr.observe(FaultBatch(trace.page[g0:g1], trace.pc[g0:g1], trace.tb[g0:g1], trace.kernel[g0:g1]))
+        mgr.feedback(Outcomes(was_evicted=(trace.page[g0:g1] % 7 == 0), fault_count=40 * g1 // g_size))
+        out.append((a.prefetch_blocks.tolist(), a.pre_evict_blocks.tolist(),
+                    None if a.counters is None else a.counters.cpu().tolist(), a.pattern, a.accuracy, a.warm))
+    return out
+
+
+def test_snapshot_moves_between_the_card_and_the_cpu(dev):
+    """A manager snapshot taken on the card restores on the CPU, and the
+    CPU's back on the card: each continuation gives the uninterrupted
+    card run's decision stream (frozen ``SMOKE``; the CPU computes the
+    kernels' plain versions, equal to them bit for bit here)."""
+    import pickle
+
+    from repro_torch.configs.predictor_paper import SMOKE
+    from repro_torch.core.incremental import TrainConfig
+    from repro_torch.uvm import runtime as R
+    from repro_torch.uvm import trace as T
+
+    tr = T.get_trace("Hotspot", 0.4).slice(0, 3000)
+    tcfg = TrainConfig(256, 0, 128)
+    mk = lambda d: R.manager_for(tr, SMOKE, tcfg, device=d)
+    n = (len(tr) + 255) // 256
+    whole = _manager_stream(mk(dev), tr, range(n))
+    card = mk(dev)
+    head = _manager_stream(card, tr, range(4))
+    blob = pickle.dumps(card.state())
+    assert b"torch.cuda" not in blob
+    cpu = mk("cpu")
+    cpu.restore(pickle.loads(blob))
+    mid = _manager_stream(cpu, tr, range(4, 8))
+    back = mk(dev)
+    back.restore(pickle.loads(pickle.dumps(cpu.state())))
+    assert back.freq_table.tags.is_cuda and all(v.is_cuda for e in back.table.slots.values()
+                                                for v in e.params.values())
+    assert head + mid + _manager_stream(back, tr, range(8, n)) == whole
+
+
+def test_tree_clone_equals_tree_on_the_card(dev):
+    """A prefetcher registered from ``_tree_mask`` (the generic mask path)
+    gives the builtin ``tree``'s counters and state on the card, launching
+    ``evict_select`` once per event."""
+    from repro_torch.uvm import registry as REG
+    from repro_torch.uvm import simulator as S
+    from repro_torch.uvm import trace as T
+
+    tr = T.get_trace("Hotspot", 0.25).slice(0, 1500)
+    with REG.scoped():
+        REG.register_prefetcher("tree_clone", S._tree_mask)
+        kernels.reset_launches()
+        a = S.run(tr, policy="lru", prefetch="tree", oversubscription=1.25, device=dev)
+        n_tree = kernels.LAUNCHES["evict_select"]
+        b = S.run(tr, policy="lru", prefetch="tree_clone", oversubscription=1.25, device=dev)
+        assert kernels.LAUNCHES["evict_select"] == 2 * n_tree > 0
+        assert a.stats == b.stats
+        for f in ("resident", "evicted_once", "last_access", "last_interval"):
+            assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f

@@ -218,9 +218,13 @@ def test_unported_options_raise():
 
     with pytest.raises(KeyError, match="unknown predictor kind 'gru'"):  # not in the predictor registry
         Trainer(SMOKE, TrainConfig(epochs=1), kind="gru", device="cpu").train_group(Entry(params={}), None, 2)
-    with pytest.raises(NotImplementedError, match="health"):
-        OversubscriptionManager(ManagerConfig(predictor=SMOKE, health=object()), device="cpu")
-    with pytest.raises(NotImplementedError, match="freq_table"):
+    # the health machine is ported; an unregistered component raises what
+    # the reference's registry raises
+    from repro_torch.uvm.manager import HealthConfig
+
+    assert OversubscriptionManager(ManagerConfig(predictor=SMOKE, health=HealthConfig()),
+                                   device="cpu").health_state == "healthy"
+    with pytest.raises(KeyError, match="unknown freq-table"):
         OversubscriptionManager(ManagerConfig(predictor=SMOKE, freq_table="lru"), device="cpu")
     tr = T.get_trace("AddVectors", 0.1)
     tagged = T.Trace(tr.name, tr.page, tr.pc, tr.tb, tr.kernel, tr.n_pages, tenant=tr.page * 0)

@@ -96,18 +96,20 @@ def test_engine_generate_matches_jax(engines, kind):
     assert pr.offload_stats["hbm_misses"] > 0
 
 
-def test_engine_rejects_the_manager_offload_kind():
+def test_engine_rejects_the_manager_offload_kind(tmp_path):
     """The engine builds the ``manager`` kind (a ``LearnedOffloadManager``
     on its device, ``tests/test_torch_train.py`` holds it against the JAX
-    package); what it still rejects are that kind's snapshot options,
-    which need the manager's snapshot store (not ported)."""
+    package), and that kind's snapshot options are ported: a manager with
+    ``checkpoint_dir`` snapshots every ``checkpoint_every`` batches, and
+    ``resume`` with no snapshot yet starts fresh
+    (``tests/test_torch_fault_tolerance.py`` holds the resumed stream)."""
     cfg = PQ.SMOKE
     params = PLM.init(0, cfg, device="cpu")
     mgr = PE.Engine(cfg, params, offload="manager", device="cpu").make_manager(96)
     assert isinstance(mgr, PO.LearnedOffloadManager) and mgr.manager.device.type == "cpu"
-    for kw in ({"checkpoint_dir": "snapshots"}, {"checkpoint_every": 4}, {"resume": True}):
-        with pytest.raises(NotImplementedError, match="snapshot"):
-            PO.LearnedOffloadManager(4, 2, device="cpu", **kw)
+    for kw in ({"checkpoint_dir": tmp_path / "snapshots"}, {"checkpoint_every": 4}, {"resume": True}):
+        m = PO.LearnedOffloadManager(4, 2, device="cpu", **kw)
+        assert m._observed_batches == 0 and (m._snapshots is None) == ("checkpoint_dir" not in kw)
 
 
 def test_serve_entry_point_prints_the_reference_keys(capsys):

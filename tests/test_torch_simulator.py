@@ -130,16 +130,19 @@ def test_evict_fit_takes_the_lexicographic_minimum():
     st.last_access.copy_(torch.tensor(rng.integers(0, 10, 128), dtype=torch.int32))
     cand = st.resident.clone()
     cand[7] = False
-    keys = PS.POLICY_KEYS["lru"](st, torch.tensor(0, dtype=torch.int32))
+    zero = torch.tensor(0, dtype=torch.int32)
+    keys = PS._lru_keys(st, zero, zero)
     want = ES.evict_select_plain(cand, keys, torch.tensor(100 - 60, dtype=torch.int32))
-    PS._evict_fit(st, 60, "lru", 7, torch.tensor(0, dtype=torch.int32))
+    PS._evict_fit(st, 60, PS._policy_fn("lru"), 7, zero, zero)
     assert int(st.occupancy) == 60
     np.testing.assert_array_equal(st.evicted_once.numpy(), want.numpy())
 
 
 def test_unported_cells_raise():
+    """An unregistered policy or prefetcher raises what the reference's id
+    lookup raises (``KeyError``)."""
     st = PS.init_state(128, "cpu")
     for pol, pf in (("mru", "demand"), ("random", "stride"), ("lru", "stride")):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(KeyError):
             PS.run_segment(st, np.zeros(4, np.int32), np.zeros(4, np.int32), capacity=4, policy=pol,
                            prefetch=pf, n_valid=1)
