@@ -5,6 +5,7 @@
     python3 chip_smoke.py --time-flash-bf16 LABEL
     python3 chip_smoke.py --time-kernels LABEL
     python3 chip_smoke.py --time-training LABEL
+    python3 chip_smoke.py --experiment-api
 
 Phases, in order; any failure exits non-zero:
 
@@ -212,6 +213,29 @@ Phases, in order; any failure exits non-zero:
               package's equal where ``scripts/rehearse_fault_tolerance_cpu.py``
               gives equal (``FT_EQUAL``), else within phase 7 (b)'s limits;
               launches and host seconds per column.
+13. api     — the experiment surface (``repro_torch.uvm.cli`` in process,
+              and ``run_ours_many``) on a temporary run store, against
+              ``experiments/torch/cli_quick_ref.json`` and the committed
+              table references: (a) ``cli sweep --scale paper`` over ATAX
+              and BICG (``lru``/``hpe`` x ``demand``/``tree``, x1.25)
+              prints the JAX package's lines and stores Table VI's
+              counters, its spec dump has the JAX package's SHA-256, and
+              the same sweep again prints ``hits=8 computed=0`` and
+              launches nothing; (b) ``sweep --spec`` replays the dump with
+              UVMSmart cells on ATAX and BICG added: the sim cells are
+              store hits, UVMSmart equals Table VI's; (c) ``cli run
+              --strategy ours --scale paper --benchmark ATAX``, fine-tuned
+              from ``pretrain_paper.npz``, within phase 7 (b)'s limits of
+              Table VI's fine-tuned ATAX; (d) ``run_ours_many`` frozen over
+              ATAX, BICG, Pathfinder and StreamTriad+2DCONV (a ``mux``
+              lane), each lane equal to its serial ``run_ours`` and to
+              Table VI's frozen runs and Table VIII's frozen ``mux`` row;
+              (e) ``cli export`` of a phase-drift and a churn log at the
+              quick preset (the JAX package's SHA-256), ``cli serve`` over
+              each with checkpoints (the JAX package's records, byte for
+              byte) and a ``--resume`` from a snapshot after the log's first
+              lines (the uninterrupted run's tail); (f) ``cli report``
+              lists every stored run.  Host seconds and launches per piece.
 
 The last lines are the card's ``nvidia-smi`` line, a ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -2785,10 +2809,21 @@ def fault_tolerance_path(dev) -> dict:
     StreamTriad+2DCONV: snapshots with isolated and shared tables equal to
     the JAX package's runs, and a chaos run on ``evaluate_many``; (e) the KV
     offload's checkpoint and resume; (f) registered policies and a
-    registered prefetcher through ``run_batch``, and Hotspot's fault log.
-    Returns the launches of all its columns."""
-    import hashlib
+    registered prefetcher through ``run_batch``, and Hotspot's fault log,
+    in a temporary directory that is removed after.  Returns the launches
+    of all its columns."""
+    import shutil
     import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ft_"))
+    try:
+        return _fault_tolerance(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _fault_tolerance(dev, tmp: Path) -> dict:
+    import hashlib
 
     import numpy as np
 
@@ -2807,7 +2842,6 @@ def fault_tolerance_path(dev) -> dict:
     ref = json.loads(FT_REF.read_text())
     frozen, tuned = TrainConfig(**ref["train"]["frozen"]), TrainConfig(**ref["train"]["fine_tuned"])
     check(dataclasses.asdict(HealthConfig()) == ref["health"], "HealthConfig's defaults are not the reference's")
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ft_"))
     hot = T.get_trace("Hotspot", ref["scale"])
     ctx = TB.Context("paper", fresh=FRESH, device=dev)
     atax = ctx.trace("ATAX")
@@ -3019,6 +3053,212 @@ def ft_launch_checks(columns: dict) -> None:
             check(col["launches"][k] > 0, f"the {name} column never launched {k}")
 
 
+# --- phase 13: the experiment surface -------------------------------------------------------
+
+CLI_REF = ROOT / "experiments" / "torch" / "cli_quick_ref.json"
+# the learned runs (d) drives through run_ours_many: three of Table VI's benchmarks and Table VIII's first pair
+API_LANES = ("ATAX", "BICG", "Pathfinder")
+API_PAIR = ("StreamTriad", "2DCONV")
+_CELL_LINE = re.compile(r"^\s*(\S+)\s+(\S+)\s+@(\S+)\s+thrash=(\d+) faults=(\d+) migrated=(\d+)(?: top1=\S+)?\s+key=(\w+)$")
+
+
+def cli_lines(argv: list) -> list[str]:
+    """``repro_torch.uvm.cli.main(argv)`` in this process: its standard
+    output, line by line (it must exit 0)."""
+    import contextlib
+    import io
+
+    from repro_torch.uvm import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    check(rc == 0, f"cli {argv[0]} exited {rc}: {buf.getvalue()[-2000:]}")
+    return buf.getvalue().splitlines()
+
+
+def first_difference(got: list, want: list) -> str:
+    """Where two record streams part (for a failure message)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            return f"record {i}: {g} against {w}"
+    return f"lengths {len(got)} against {len(want)}"
+
+
+def experiment_api_path(dev, ctx=None) -> dict:
+    """Phase 13: the port's CLI, run store, ``Session`` and ``run_ours_many``
+    on the card, against ``experiments/torch/cli_quick_ref.json`` (the JAX
+    package's CLI), ``tables_paper_ref.json`` and
+    ``concurrent_paper_ref.json``, in a temporary directory that is removed
+    after.  ``ctx`` is phase 8's frozen context, whose serial runs (d)
+    compares with (a new one when phase 13 runs alone).  Returns the
+    launches of all its pieces."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_api_"))
+    try:
+        return _experiment_api(dev, ctx, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _experiment_api(dev, ctx, tmp: Path) -> dict:
+    import hashlib
+
+    from repro_torch import kernels
+    from repro_torch.bench import tables as TB
+    from repro_torch.configs.predictor_paper import CONFIG
+    from repro_torch.core.incremental import TrainConfig
+    from repro_torch.uvm import runtime as R
+    from repro_torch.uvm.api import CellSpec, ExperimentSpec, PolicySpec, PrefetchSpec, RunStore, WorkloadSpec
+
+    ref = json.loads(CLI_REF.read_text())
+    tables = json.loads(TABLES_REF.read_text())
+    conc = json.loads(CONCURRENT_REF.read_text())
+    if ctx is None:
+        ctx = TB.Context("paper", frozen=True, fresh=FRESH, device=dev)
+    runs = tmp / "runs"
+    pieces = {}
+
+    def piece(name, fn):
+        _sync(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        pieces[name] = {"host_s": time.perf_counter() - t0, "launches": dict(kernels.LAUNCHES)}
+        return out
+
+    def stored(key: str) -> dict:
+        rec = json.loads((runs / key[:2] / f"{key}.json").read_text())
+        check(rec["key"] == key, f"the stored record {key} is another spec's")
+        return rec["result"]
+
+    # (a) the sweep at the paper preset, its spec dump, and the same sweep again
+    cli = ref["cli"]
+    on = ["--device", dev]  # every command but report runs on the phase's device
+    dump = tmp / "spec.json"
+    lines = piece("sweep", lambda: cli_lines(["sweep", *cli["sweep"], *on, "--runs-dir", runs, "--dump-spec", dump]))
+    strip = lambda ls: [ln.split(" store=")[0] for ln in ls if not ln.startswith("# wrote")]
+    check(strip(lines) == ref["keys"]["sweep_lines"], "(a) the sweep's lines differ from the JAX package's: "
+          + first_difference(strip(lines), ref["keys"]["sweep_lines"]))
+    check(hashlib.sha256(dump.read_bytes()).hexdigest() == ref["keys"]["dump_sha256"],
+          "(a) the dumped spec differs from the JAX package's")
+    bad = []
+    for ln in lines[1:-1]:
+        bench, label, _, *_, key = _CELL_LINE.match(ln).groups()
+        if stored(key) != tables["benchmarks"][bench]["sim"][label]:
+            bad.append((bench, label, stored(key)))
+    check(not bad and len(lines) == 10, f"(a) stored sim cells differ from Table VI's: {bad}")
+    again = piece("sweep_again", lambda: cli_lines(["sweep", *cli["sweep"], *on, "--runs-dir", runs]))
+    check(again[:-1] == lines[1:-1] and again[-1].startswith("# sweep cells=8 hits=8 computed=0 "),
+          f"(a) the second sweep was not served from the store: {again[-1]}")
+    check(not any(pieces["sweep_again"]["launches"].values()), "(a) the second sweep launched a kernel")
+    # (b) the dump replayed with UVMSmart cells added: the sim cells are hits
+    spec = ExperimentSpec.from_json(dump.read_text())
+    extra = [CellSpec(WorkloadSpec(b, *TB.SCALE_PRESETS["paper"]), "uvmsmart", PolicySpec("adaptive"),
+                      PrefetchSpec("adaptive"), os_) for b, os_ in cli["extra"]]
+    replay = ExperimentSpec.from_dict({**spec.to_dict(), "extra_cells": [c.to_dict() for c in extra]})
+    check(replay.key == ref["keys"]["replay"] and [c.key for c in replay.cells()] == ref["keys"]["replay_cells"],
+          "(b) the replayed spec's keys differ from the JAX package's")
+    (tmp / "replay.json").write_text(replay.to_json())
+    lines = piece("replay", lambda: cli_lines(["sweep", "--spec", tmp / "replay.json", *on, "--runs-dir", runs]))
+    check(lines[-1].startswith("# sweep cells=10 hits=8 computed=2 "), f"(b) {lines[-1]}")
+    smart = {c.workload.benchmark: stored(c.key) for c in extra}
+    check(all(smart[b] == tables["benchmarks"][b]["uvmsmart"] for b in smart),
+          f"(b) UVMSmart differs from Table VI's: {smart}")
+    # (c) the fine-tuned ours cell from the paper preset's table
+    lines = piece("run_ours", lambda: cli_lines(["run", *cli["run"], *on, "--runs-dir", runs]))
+    check(lines[0].rstrip().endswith(f"key={ref['keys']['run_ours']}"), f"(c) {lines[0]}")
+    tuned = R.LearnedRunResult(**stored(ref["keys"]["run_ours"]))
+    dist = run_distance(tuned, tables["benchmarks"]["ATAX"]["ours_fine_tuned"])
+    check_tuned("cli_run_ATAX", dist, ())
+    # (d) run_ours_many, frozen, against the serial runs and the references
+    frozen = TrainConfig(**tables["train"]["frozen"])
+    pair = ctx.concurrent(API_PAIR, slice_len=frozen.group_size)
+    traces = [ctx.trace(b) for b in API_LANES] + [pair]
+    many = piece("run_ours_many", lambda: R.run_ours_many(traces, CONFIG, frozen, oversubscription=1.25,
+                                                          tables=[ctx.pretrained() for _ in traces], device=dev))
+    serial = piece("run_ours_serial", lambda: [ctx.ours(b) for b in API_LANES] + [ctx.ours(pair)])
+    for tr, m, s in zip(traces, many, serial):
+        check(dataclasses.asdict(m) == dataclasses.asdict(s), f"(d) {tr.name}'s lane differs from its serial run_ours")
+    for b, m in zip(API_LANES, many):
+        w = tables["benchmarks"][b]["ours_frozen"]
+        check((m.stats, m.top1, m.n_predictions) == (w["stats"], w["top1"], w["n_predictions"]),
+              f"(d) {b}'s lane differs from Table VI's frozen ours")
+    key = "+".join(API_PAIR)
+    want = conc["pairs_ref"][key]["runs"]["mux_frozen"]
+    check(run_fields(many[-1]) == {k: want[k] for k in run_fields(many[-1])},
+          f"(d) the {key} lane differs from Table VIII's frozen mux run")
+    [row] = [r for r in conc["tables"]["table8_frozen"] if r["workloads"] == key]
+    m = many[-1]
+    check((row["mux_top1"], row["tenant0_top1"], row["tenant1_top1"])
+          == (round(m.top1, 3), round(m.per_tenant_top1["0"], 3), round(m.per_tenant_top1["1"], 3)),
+          f"(d) Table VIII's frozen row differs: {row}")
+    # (e) the fault logs, serve over each with checkpoints, and a resume from the middle
+    served = {}
+
+    def serve_logs():
+        for name, argv in cli["logs"].items():
+            want = ref["logs"][name]
+            log = tmp / f"{name}.jsonl"
+            cli_lines(["export", *argv, *on, "--no-store", "--out", log])
+            text = log.read_text()
+            check(hashlib.sha256(text.encode()).hexdigest() == want["sha256"],
+                  f"(e) the {name} log differs from the JAX package's")
+            ck = ["--checkpoint-every", cli["checkpoint_every"]]
+            lines = cli_lines(["serve", "--input", log, "--checkpoint-dir", tmp / f"{name}_ck", *ck, *on])
+            recs = [ln for ln in lines if ln.startswith("{")]
+            check(recs == want["records"], f"(e) the {name} stream differs from the JAX package's: "
+                  + first_difference(recs, want["records"]))
+            check(lines[-1] == want["summary"], f"(e) {lines[-1]} against {want['summary']}")
+            head = tmp / f"{name}_head.jsonl"
+            head.write_text("".join(text.splitlines(keepends=True)[: cli["resume_after"][name]]))
+            resume_ck = ["--checkpoint-dir", tmp / f"{name}_resume", *ck, *on]
+            cli_lines(["serve", "--input", head, *resume_ck])
+            res = cli_lines(["serve", "--input", log, *resume_ck, "--resume"])
+            at = int(res[0].split("batch=")[1].split()[0])
+            tail = [ln for ln in res if ln.startswith("{")]
+            check(at == want["resumed"]["batch"] and tail == recs[at:] and res[-1] == lines[-1],
+                  f"(e) the {name} stream resumed at batch {at} differs from the uninterrupted run's tail")
+            served[name] = {"batches": len(recs), "resumed_at": at,
+                            "prefetching": sum(bool(json.loads(r)["prefetch_blocks"]) for r in recs)}
+
+    piece("serve", serve_logs)
+    # (f) the report lists every stored run
+    lines = piece("report", lambda: cli_lines(["report", "--runs-dir", runs]))
+    n = len(list(RunStore(runs).records()))
+    check(n == 11 and lines[-1].startswith(f"# {n} stored runs in ") and len(lines) == n + 2,
+          f"(f) the report lists {len(lines) - 2} runs of {n}: {lines[-1]}")
+    print(f"  (a) sweep at the paper preset: 8 cells equal to Table VI's, lines and spec dump the JAX package's; "
+          f"again: hits=8 computed=0, no launch; (b) replay: 8 hits, UVMSmart on ATAX and BICG equal; (c) cli run "
+          f"ours ATAX fine-tuned: top-1 {tuned.top1} (JAX {tables['benchmarks']['ATAX']['ours_fine_tuned']['top1']}, "
+          f"equal: {dist['equal']}); (d) run_ours_many over {', '.join(tr.name for tr in traces)}: every lane equal "
+          f"to its serial run and to Tables VI and VIII; (e) {json.dumps(served)}: streams the JAX package's, byte "
+          f"for byte, and the resumed tails the uninterrupted runs'; (f) report: {n} runs")
+    print("  host s: " + json.dumps({k: v["host_s"] for k, v in pieces.items()}))
+    print("  launches: " + json.dumps({k: {n: c for n, c in v["launches"].items() if c} for k, v in pieces.items()}))
+    api_launch_checks(pieces)
+    # the launches of the new path: every piece but the serial runs it is compared with
+    return {k: sum(v["launches"][k] for name, v in pieces.items() if name != "run_ours_serial")
+            for k in kernels.LAUNCHES}
+
+
+def api_launch_checks(pieces: dict) -> None:
+    """The sweeps launch ``evict_select``; the fine-tuned ``run`` the
+    training kernels as well; ``run_ours_many`` the frozen path's
+    (``evict_select``, the attention); ``serve`` fine-tunes on every batch
+    and opens the prefetch gate (no simulator: no ``evict_select``)."""
+    need = {"sweep": ("evict_select",), "replay": ("evict_select",),
+            "run_ours": ("evict_select", "flash_attention", "flash_attention_bwd", "thrash_ce_fwd", "thrash_ce_bwd"),
+            "run_ours_many": ("evict_select", "flash_attention"),
+            "serve": ("flash_attention", "flash_attention_bwd", "thrash_ce_fwd", "thrash_ce_bwd", "freq_update")}
+    for name, ks in need.items():
+        for k in ks:
+            check(pieces[name]["launches"][k] > 0, f"phase 13's {name} never launched {k}")
+
+
 def main() -> int:
     import argparse
 
@@ -3032,6 +3272,8 @@ def main() -> int:
     ap.add_argument("--time-training", metavar="LABEL",
                     help="after the build, only time phase 7's fine-tune group (five times) and the fine-tuned "
                          "run_ours (once) and print one JSON line headed LABEL")
+    ap.add_argument("--experiment-api", action="store_true",
+                    help="after the build, run phase 13 alone (no result line)")
     args = ap.parse_args()
     try:
         import torch
@@ -3052,13 +3294,13 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
         smi = nvidia_smi_line()
-        print(f"[1/12] device: {name} (count {count}); nvidia-smi: {smi}")
+        print(f"[1/13] device: {name} (count {count}); nvidia-smi: {smi}")
         print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
         t0 = time.perf_counter()
         LIBRARY.cdll()
         how = "built" if LIBRARY.build_seconds is not None else "loaded the existing build"
-        print(f"[2/12] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
+        print(f"[2/13] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
         for line in LIBRARY.ptxas_log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line or line.startswith("=="):
                 print("      " + line.strip())
@@ -3071,8 +3313,14 @@ def main() -> int:
         if args.time_training is not None:
             time_training(dev, args.time_training)
             return 0
+        if args.experiment_api:
+            t13 = time.perf_counter()
+            launches = experiment_api_path(dev)
+            print(f"      phase 13 alone took {time.perf_counter() - t13:.1f} s; launches "
+                  + json.dumps({k: c for k, c in launches.items() if c}))
+            return 0
 
-        print(f"[3/12] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
+        print(f"[3/13] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
         rows = [kernel_evict_select(dev), *kernel_freq_table(dev), kernel_flash_attention(dev),
                 kernel_flash_attention_bf16(dev), kernel_flash_attention_bwd(dev), kernel_decode_attention(dev),
                 kernel_ssd_scan(dev), *kernel_thrash_ce(dev)]
@@ -3091,16 +3339,16 @@ def main() -> int:
               f"step {tf['step_device_ops_per_call']}")
 
         by_path = {}
-        print(f"[4/12] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
+        print(f"[4/13] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         _, by_path["run_ours"] = main_path(dev)
-        print(f"[5/12] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
+        print(f"[5/13] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["serve"], qwen2_engine, qwen2_prompt = serve_path(dev)
-        print(f"[6/12] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
+        print(f"[6/13] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["serve_mamba2"] = serve_mamba2_path(dev)
-        print(f"[7/12] train: one train_group, the fine-tuned run_ours (Hotspot x1.5, CONFIG, TrainConfig()) and the "
+        print(f"[7/13] train: one train_group, the fine-tuned run_ours (Hotspot x1.5, CONFIG, TrainConfig()) and the "
               f"manager KV offload (qwen2-0.5b full width), on the card (at {time.perf_counter() - start:.0f} s)")
         by_path["train_group"] = train_group_check(dev)
         print(f"      (b) at {time.perf_counter() - start:.0f} s")
@@ -3108,33 +3356,40 @@ def main() -> int:
         print(f"      (c) at {time.perf_counter() - start:.0f} s")
         by_path["serve_manager"] = serve_manager_check(dev, qwen2_engine, qwen2_prompt)
         del qwen2_engine
-        print(f"[8/12] tables: the table runner at the paper preset, x1.25, 11 benchmarks (five simulator cells, "
+        print(f"[8/13] tables: the table runner at the paper preset, x1.25, 11 benchmarks (five simulator cells, "
               f"UVMSmart, frozen ours; fine-tuned ours on {len(TABLES_TUNED)}), on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["table6"], tables_ctx, tables_tuned = tables_path(dev)
-        print(f"[9/12] concurrent: Tables VII and VIII's cells, four pairs at the paper preset, x1.25 (frozen mux and "
+        print(f"[9/13] concurrent: Tables VII and VIII's cells, four pairs at the paper preset, x1.25 (frozen mux and "
               f"merged on all four; fine-tuned and Table VII on {', '.join(CONCURRENT_TUNED)}), on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["concurrent"] = concurrent_path(dev)
         t10 = time.perf_counter()
-        print(f"[10/12] figures: Figs. 3, 12, 13 and 14's cells on {', '.join(FIG3_BENCH)} and Figs. 4 and 11's "
+        print(f"[10/13] figures: Figs. 3, 12, 13 and 14's cells on {', '.join(FIG3_BENCH)} and Figs. 4 and 11's "
               f"protocols on {FIG_TUNED} at the paper preset, on the card (at {t10 - start:.0f} s)")
         by_path["figures"] = figures_path(dev, tables_ctx, tables_tuned)
         print(f"      phase 10 took {time.perf_counter() - t10:.1f} s")
         t11 = time.perf_counter()
-        print(f"[11/12] zoo and QoS: the JAX package's initial weights, Fig. 10's four predictor kinds on "
+        print(f"[11/13] zoo and QoS: the JAX package's initial weights, Fig. 10's four predictor kinds on "
               f"{FIG10_BENCH}, Table IX's first drift trace, Table X's StreamTriad+RandomScan under budgets and the "
               f"random policy, on the card (at {t11 - start:.0f} s)")
         by_path["zoo_qos"] = zoo_qos_path(dev)
         print(f"      phase 11 took {time.perf_counter() - t11:.1f} s; launches "
               + json.dumps({k: c for k, c in by_path["zoo_qos"].items() if c}))
         t12 = time.perf_counter()
-        print(f"[12/12] fault tolerance: snapshots of the manager (Hotspot frozen, ATAX fine-tuned), the mux "
+        print(f"[12/13] fault tolerance: snapshots of the manager (Hotspot frozen, ATAX fine-tuned), the mux "
               f"(StreamTriad+2DCONV) and the KV offload, the health machine under chaos, plug-ins through run_batch "
               f"and the fault log, on the card (at {t12 - start:.0f} s)")
         by_path["fault_tolerance"] = fault_tolerance_path(dev)
         print(f"      phase 12 took {time.perf_counter() - t12:.1f} s; launches "
               + json.dumps({k: c for k, c in by_path["fault_tolerance"].items() if c}))
+        t13 = time.perf_counter()
+        print(f"[13/13] experiment API: cli sweep, sweep --spec, run, export, serve (checkpoint and resume) and "
+              f"report on a temporary run store, and run_ours_many over {', '.join(API_LANES)} and "
+              f"{'+'.join(API_PAIR)}, on the card (at {t13 - start:.0f} s)")
+        by_path["experiment_api"] = experiment_api_path(dev, tables_ctx)
+        print(f"      phase 13 took {time.perf_counter() - t13:.1f} s; launches "
+              + json.dumps({k: c for k, c in by_path["experiment_api"].items() if c}))
         for r in rows:
             r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}
             r["launches"] = sum(r["launches_by_path"].values())

@@ -215,6 +215,26 @@ preset over ``PLUGIN_CELLS`` with ``lru_clone``, ``mru`` and
 ``tree_clone`` registered, and Hotspot's fault log (``to_fault_log``,
 batches of 256): its SHA-256, line count and the read-back trace's
 SHA-256.  It takes a few minutes on a CPU.
+
+    PYTHONPATH=src python scripts/export_torch_reference.py --cli
+
+writes ``experiments/torch/cli_quick_ref.json`` instead (about 30 KB):
+what ``chip_smoke.py`` phase 13 compares, from the JAX package's own
+``python -m repro.uvm.cli`` run in process on a CPU (``CLI`` holds every
+argument list).  Two fault logs written by ``cli export --scale quick``, a
+phase-drift one (StreamTriad then PtrChase) and a churn one (StreamTriad
+and 2DCONV as tenants): each log's SHA-256, lines and bytes; ``cli serve``
+over each at the reference's defaults, every record it prints and its
+summary line (the same with ``--checkpoint-every``, asserted equal); and a
+``--resume`` from a snapshot taken after the log's first
+``CLI["resume_after"]`` lines (a run over that head with
+``--checkpoint-dir``): the batch it resumed at and its records.  Beside
+them the keys of every spec phase 13 builds: the cells of ``cli sweep
+--scale paper`` over ATAX and BICG (and the lines it prints, without the
+store's path), the SHA-256 of its ``--dump-spec`` file, that experiment
+with UVMSmart cells on ATAX and BICG added, and the ``ours`` cell of ``cli
+run --strategy ours --scale paper --benchmark ATAX``.  It takes about a
+minute on a CPU.
 """
 from __future__ import annotations
 
@@ -1561,6 +1581,101 @@ def _export_fault_tolerance(tmp: Path) -> None:
                       "mux_chaos_seed": mux["chaos"]["schedule"]["seed"], "plugins": stats}))
 
 
+#: phase 13's command lines (``cli_quick_ref.json`` carries them)
+CLI = {
+    "logs": {"drift": ["--scale", "quick", "--phases", "StreamTriad", "PtrChase"],
+             "churn": ["--scale", "quick", "--phases", "StreamTriad", "2DCONV", "--drift-kind", "churn"]},
+    "checkpoint_every": 4,
+    "resume_after": {"drift": 7, "churn": 8},  # lines of the log (its header included) before the snapshot
+    "sweep": ["--scale", "paper", "--benchmarks", "ATAX", "BICG", "--policies", "lru", "hpe", "--prefetchers",
+              "demand", "tree", "--oversubs", "1.25"],
+    "extra": [["ATAX", 1.25], ["BICG", 1.25]],  # UVMSmart cells added to the dumped spec
+    "run": ["--strategy", "ours", "--scale", "paper", "--benchmark", "ATAX"],
+}
+
+
+def _cli_lines(cli, argv: list) -> list[str]:
+    """``cli.main(argv)``'s standard output, line by line (it must exit 0)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main(argv) == 0, argv
+    return buf.getvalue().splitlines()
+
+
+def export_cli() -> None:
+    """The JAX package's CLI runs that phase 13 compares (see the module
+    docstring)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="repro_cli_")
+    os.environ["REPRO_JAX_CACHE"] = tmp
+    try:
+        _export_cli(Path(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _export_cli(tmp: Path) -> None:
+    import argparse as ap_mod
+    import hashlib
+    import time
+
+    from repro.uvm import cli
+    from repro.uvm.api import CellSpec, ExperimentSpec, PolicySpec, PrefetchSpec, WorkloadSpec
+
+    t_start = time.perf_counter()
+    out = {"cli": CLI, "logs": {}}
+    for name, argv in CLI["logs"].items():
+        log = tmp / f"{name}.jsonl"
+        _cli_lines(cli, ["export", *argv, "--no-store", "--out", str(log)])
+        text = log.read_text()
+        rec = {"sha256": hashlib.sha256(text.encode()).hexdigest(), "lines": len(text.splitlines()),
+               "bytes": len(text.encode())}
+        lines = _cli_lines(cli, ["serve", "--input", str(log)])
+        rec["records"], rec["summary"] = [l for l in lines if l.startswith("{")], lines[-1]
+        assert len(lines) == len(rec["records"]) + 1
+        ck = ["--checkpoint-dir", str(tmp / f"{name}_ck"), "--checkpoint-every", str(CLI["checkpoint_every"])]
+        assert _cli_lines(cli, ["serve", "--input", str(log), *ck]) == lines
+        head = tmp / f"{name}_head.jsonl"
+        head.write_text("".join(text.splitlines(keepends=True)[: CLI["resume_after"][name]]))
+        ck = ["--checkpoint-dir", str(tmp / f"{name}_resume"), "--checkpoint-every", str(CLI["checkpoint_every"])]
+        _cli_lines(cli, ["serve", "--input", str(head), *ck])
+        res = _cli_lines(cli, ["serve", "--input", str(log), *ck, "--resume"])
+        at = int(res[0].split("batch=")[1].split()[0])
+        rec["resumed"] = {"batch": at, "records": [l for l in res if l.startswith("{")], "summary": res[-1]}
+        assert rec["resumed"]["records"] == rec["records"][at:] and res[-1] == rec["summary"]
+        out["logs"][name] = rec
+        print(json.dumps({name: {k: rec[k] for k in ("sha256", "lines")}, "batches": len(rec["records"]),
+                          "resumed_at": at}), flush=True)
+    runs = tmp / "runs"
+    spec_path = tmp / "spec.json"
+    lines = _cli_lines(cli, ["sweep", *CLI["sweep"], "--runs-dir", str(runs), "--dump-spec", str(spec_path)])
+    spec = ExperimentSpec.from_json(spec_path.read_text())
+    extra = tuple(CellSpec(WorkloadSpec(b, 1.0, 60_000), "uvmsmart", PolicySpec("adaptive"), PrefetchSpec("adaptive"),
+                           os_) for b, os_ in CLI["extra"])
+    replay = ExperimentSpec.from_dict({**spec.to_dict(), "extra_cells": [c.to_dict() for c in extra]})
+    strip = lambda ls: [l.split(" store=")[0] for l in ls if not l.startswith("# wrote")]
+    session = cli._session(ap_mod.Namespace(scale="paper", cap=None, runs_dir=None, no_store=True))
+    [ours] = ExperimentSpec(name="run", workloads=(session.workload("ATAX"),), strategy="ours",
+                            policies=(PolicySpec("lru"),), prefetchers=(PrefetchSpec("tree"),),
+                            oversubscriptions=(1.25,),
+                            model=cli._strategy_model(session, "ours", "transformer")).cells()
+    out["keys"] = {
+        "sweep": spec.key, "sweep_cells": [c.key for c in spec.cells()], "sweep_lines": strip(lines),
+        "dump_sha256": hashlib.sha256(spec_path.read_bytes()).hexdigest(),
+        "replay": replay.key, "replay_cells": [c.key for c in replay.cells()], "run_ours": ours.key,
+        "run_ours_model": ours.model.key,
+    }
+    out["seconds"] = time.perf_counter() - t_start
+    (OUT / "cli_quick_ref.json").write_text(json.dumps(out, indent=1) + "\n")
+    print(json.dumps({"seconds": out["seconds"], "keys": {k: v for k, v in out["keys"].items() if "cells" not in k
+                                                          and k != "sweep_lines"}}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cache-dir", default=None, help="memoise the pretraining in this directory")
@@ -1578,7 +1693,11 @@ def main() -> None:
                     "and Fig. 10's rows in figures_paper_ref.json (and nothing else)")
     ap.add_argument("--fault-tolerance", action="store_true", help="write fault_tolerance_ref.json (and nothing "
                     "else)")
+    ap.add_argument("--cli", action="store_true", help="write cli_quick_ref.json (and nothing else)")
     args = ap.parse_args()
+    if args.cli:
+        export_cli()
+        return
     if args.fault_tolerance:
         export_fault_tolerance()
         return

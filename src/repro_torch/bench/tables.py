@@ -21,10 +21,12 @@ training group.  Tables IX and X pin their own geometry to the quick
 preset whatever ``--scale`` says, as the reference does, and write no
 file (the reference's record their rows into ``BENCH_sim.json``).
 
-A :class:`Context` takes the place of the reference's ``Session``: the same
-benchmarks (``ALL_BENCH``), presets (``SCALE_PRESETS``) and rule-based
-cells (``STANDARD_CELLS``), each trace cut to its first ``cap`` accesses
-(a benchmark, a zoo pattern, or a :class:`Drift` workload of
+A :class:`Context` takes the place of the reference's ``Session`` (the
+port's :class:`~repro_torch.uvm.api.session.Session` is the reference's,
+and lends this module its constants): the same benchmarks
+(``ALL_BENCH``), presets (``SCALE_PRESETS``) and rule-based cells
+(``STANDARD_CELLS``), each trace cut to its first ``cap`` accesses (a
+benchmark, a zoo pattern, or a :class:`Drift` workload of
 :mod:`repro_torch.uvm.zoo`), and an in-process memo of traces and cells; it
 keeps no disk store.  ``ours`` is the paper's learned runtime, ``run_ours``
 at the preset's predictor and schedule (``--frozen``: no fine-tuning), from
@@ -73,38 +75,24 @@ from repro_torch.uvm import simulator as S
 from repro_torch.uvm import timing
 from repro_torch.uvm import trace as T
 from repro_torch.uvm import zoo as Z
-from repro_torch.uvm.api.specs import QosSpec, QosTierSpec
+from repro_torch.uvm.api.session import ALL_BENCH, FEATURED, MEMO_DIR, PAPER_TABLES, Session, pretrained_table
+from repro_torch.uvm.api.specs import PRETRAIN_BENCHES, SCALE_PRESETS, TENANCIES, PretrainSpec, QosSpec, QosTierSpec
 from repro_torch.uvm.uvmsmart import run_uvmsmart
 
-ALL_BENCH = list(T.BENCHMARKS)
-#: the paper's focus set (``repro.uvm.api.session.FEATURED``)
-FEATURED = ["ATAX", "BICG", "Hotspot", "NW", "Srad-v2"]
-#: (trace scale, cap on accesses), as ``repro.uvm.api.specs.SCALE_PRESETS``
-SCALE_PRESETS = {"quick": (0.4, 6000), "paper": (1.0, 60_000)}
 #: every rule-based cell the tables read
-STANDARD_CELLS = (
-    ("lru", "tree"), ("lru", "demand"), ("hpe", "demand"),
-    ("hpe", "tree"), ("belady", "demand"),
-)
-EXPERIMENTS = Path(__file__).resolve().parents[3] / "experiments" / "torch"
-#: the JAX package's pretrain memos (read, never written)
-MEMO_DIR = EXPERIMENTS.parent / "cache"
-#: the reference's Section V-A corpus (``repro.uvm.api.specs.PRETRAIN_BENCHES``)
-PRETRAIN_BENCHES = ("ATAX", "Backprop", "BICG", "Hotspot", "NW")
-PAPER_TABLE = EXPERIMENTS / "pretrain_paper.npz"
+STANDARD_CELLS = Session.STANDARD_CELLS
+EXPERIMENTS = MEMO_DIR.parent / "torch"
+PAPER_TABLE = PAPER_TABLES[777]
 #: Table VII's ``ours`` table: the paper preset's recipe with ``seed0=321``
-PAPER_TABLE_S321 = EXPERIMENTS / "pretrain_paper_s321.npz"
+PAPER_TABLE_S321 = PAPER_TABLES[321]
 #: Fig. 11's chain table: the paper preset's recipe with ``seed0=123``
-PAPER_TABLE_S123 = EXPERIMENTS / "pretrain_paper_s123.npz"
+PAPER_TABLE_S123 = PAPER_TABLES[123]
 #: the JAX package's initial weights of the fresh slots of Tables VII and
 #: VIII and of the figures
 PAPER_FRESH = EXPERIMENTS / "init_paper_slots.npz"
 TABLES = ("table1", "table2", "table3", "table4", "table6", "table7", "table8", "table9", "table10")
 #: the Section V-F pairs of Tables VII and VIII
 CONCURRENT_PAIRS = (("StreamTriad", "2DCONV"), ("Hotspot", "Srad-v2"), ("NW", "2DCONV"), ("ATAX", "Srad-v2"))
-#: ``ours``'s treatments of a tenant-tagged trace: one pipeline per tenant
-#: (isolated or shared frequency tables) or one merged manager
-TENANCIES = ("mux", "mux-shared", "merged")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,9 +127,9 @@ class Context:
 
     ``table`` is the pretrained model table ``ours`` starts from (a
     :class:`ModelTable` or the path of a memo pickle or ``.npz``); it
-    defaults to ``PAPER_TABLE`` at the ``paper`` preset and, at ``quick``,
-    to the reference's Section V-A recipe (:meth:`pretrain`: the JAX
-    package's memo in ``memo_dir``).  ``table7`` is Table VII's
+    defaults to the preset's Section V-A recipe (:meth:`pretrain`:
+    ``PAPER_TABLE`` at the ``paper`` preset, the JAX package's memo in
+    ``memo_dir`` at ``quick``).  ``table7`` is Table VII's
     (``PAPER_TABLE_S321`` at ``paper``), ``fig11`` Fig. 11's
     (``PAPER_TABLE_S123``); at ``quick`` both raise without an argument.
     ``fresh`` (a mapping slot -> params, or an ``.npz`` of them) gives the
@@ -164,9 +152,7 @@ class Context:
         self.train = TrainConfig(2048, 3, 256) if paper else TrainConfig(1024, 2, 128)
         self.tcfg = dataclasses.replace(self.train, epochs=0) if frozen else self.train
         self.memo_dir = memo_dir
-        self._tables = {"ours": PAPER_TABLE if table is None and paper else table,
-                        "table7": PAPER_TABLE_S321 if table7 is None and paper else table7,
-                        "fig11": PAPER_TABLE_S123 if fig11 is None and paper else fig11}
+        self._tables = {"ours": table, "table7": table7, "fig11": fig11}
         self.fresh = convert.fresh_slots(fresh) if isinstance(fresh, (str, Path)) else fresh
         self._masters: dict = {}
         self._recipes: dict = {}
@@ -237,33 +223,35 @@ class Context:
             self._merges[key] = T.concurrent([self.trace(t) for t in tenants], seed=seed, slice_len=slice_len)
         return self._merges[key]
 
-    def pretrain(self, pcfg=None, train: TrainConfig | None = None, *, scale: float | None = None) -> ModelTable:
+    def pretrain(self, pcfg=None, train: TrainConfig | None = None, *, scale: float | None = None,
+                 seed0: int = 777) -> ModelTable:
         """A fresh copy of the Section V-A table of a recipe (the reference's
-        ``Session.pretrained(PretrainSpec(scale), pcfg=, train=)``, two
-        rounds; defaults: this preset's predictor and schedule, ``0.6 *
-        scale``): the JAX package's memo of it from ``memo_dir`` when there
-        is one, else pretrained here."""
+        ``Session.pretrained(PretrainSpec(scale, seed0=seed0), pcfg=,
+        train=)``, two rounds; defaults: this preset's predictor and
+        schedule, ``0.6 * scale``), as
+        :func:`~repro_torch.uvm.api.session.pretrained_table` finds it."""
         pcfg = pcfg if pcfg is not None else self.pcfg
         train = train if train is not None else self.train
         scale = self.scale * 0.6 if scale is None else scale
-        key = (pcfg, dataclasses.astuple(train), scale)
+        key = (pcfg, dataclasses.astuple(train), scale, seed0)
         if key not in self._recipes:
-            self._recipes[key] = R.pretrain_table(pretrain_corpus(scale), pcfg, train, max_rounds=2,
-                                                  memo_dir=self.memo_dir, device=self.device)
+            self._recipes[key] = pretrained_table(PretrainSpec(scale=scale, seed0=seed0), pcfg, train,
+                                                  memo_dir=self.memo_dir, fresh=self.fresh, device=self.device)
         return self._recipes[key].clone()
 
     def pretrained(self, which: str = "ours") -> ModelTable:
         """A fresh copy of a pretrained table (fine-tuning changes it):
-        ``ours``'s, ``"table7"``'s or ``"fig11"``'s."""
-        if which not in self._masters:
-            src = self._tables[which]
-            if src is None:
-                if which == "ours":
-                    return self.pretrain()
+        ``ours``'s, ``"table7"``'s or ``"fig11"``'s, the one passed for it or
+        else its recipe's (:meth:`pretrain` with ``seed0`` 777, 321 or 123)."""
+        src = self._tables[which]
+        if src is None:
+            if which != "ours" and self.preset != "paper":
                 name, seed0 = {"table7": ("Table VII", 321), "fig11": ("Fig. 11", 123)}[which]
                 raise NotImplementedError(
                     f"the {self.preset!r} preset's {name} table (the reference's Section V-A pretrain with "
                     f"seed0={seed0}) has no committed copy (ROADMAP A1); pass {which}=")
+            return self.pretrain(seed0={"ours": 777, "table7": 321, "fig11": 123}[which])
+        if which not in self._masters:
             self._masters[which] = (src if isinstance(src, ModelTable)
                                     else R.load_pretrained(src, self.pcfg, self.device, fresh=self.fresh))
         return self._masters[which].clone()

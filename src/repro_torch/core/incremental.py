@@ -111,7 +111,8 @@ class Trainer:
         per lane; an empty lane gives empty arrays.  Every lane runs through
         :meth:`evaluate` in turn, which is what the JAX package does below
         ``MIN_VMAP_LANES`` lanes a bucket; stacking a bucket into one
-        launch per kernel belongs with ``run_ours_many`` (ROADMAP A5)."""
+        launch per kernel, with ``run_ours_many``'s lockstep order, is
+        ROADMAP A5b."""
         return [self.evaluate(p, fs, na) for p, fs, na in zip(params_list, fs_list, n_active_list)]
 
     def train_group_many(self, entries: list, fs_list: list, n_active_list: list, *, in_et_list=None,
@@ -122,7 +123,7 @@ class Trainer:
         optimizer state first, then train one by one in the JAX package's
         bucket order (sample bucket, step bucket, LUCIR eligibility, thrash
         flags present).  As in :meth:`evaluate_many`, one launch per bucket
-        waits for ``run_ours_many`` (ROADMAP A5)."""
+        waits for ROADMAP A5b."""
         tc = self.tcfg
         in_et_list = in_et_list if in_et_list is not None else [None] * len(entries)
         buckets: dict = {}

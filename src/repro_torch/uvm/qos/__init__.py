@@ -26,7 +26,7 @@ Block ownership is learned first-toucher from the observed fault stream;
 pool.  :meth:`BudgetController.state` / :meth:`BudgetController.restore`
 snapshot the controller as host data; ``TenantMux.state`` carries it.
 """
-from repro_torch.uvm.qos.budget import BudgetController, QosTier
+from repro_torch.uvm.qos.budget import BudgetController, QosTier, parse_tier_flags
 from repro_torch.uvm.qos import stability as stability  # noqa: F401  (registers builtins)
 
-__all__ = ["BudgetController", "QosTier"]
+__all__ = ["BudgetController", "QosTier", "parse_tier_flags"]

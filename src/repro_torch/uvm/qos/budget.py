@@ -45,6 +45,21 @@ class QosTier:
             raise ValueError(f"tier share must be >= 0, got {self.share}")
 
 
+def parse_tier_flags(items) -> dict[str, QosTier]:
+    """Parse repeated ``--qos-tier TENANT:FLOOR[:SHARE]`` flag values."""
+    tiers: dict[str, QosTier] = {}
+    for item in items or ():
+        parts = str(item).split(":")
+        if not 2 <= len(parts) <= 3 or not parts[0]:
+            raise ValueError(
+                f"bad --qos-tier {item!r}; expected TENANT:FLOOR[:SHARE] (e.g. A:0.5:1.0)"
+            )
+        tiers[parts[0]] = QosTier(
+            floor=float(parts[1]), share=float(parts[2]) if len(parts) == 3 else 1.0
+        )
+    return tiers
+
+
 class BudgetController:
     """Recompute per-tenant block budgets from observed behaviour and
     compile them (plus current residency) into the simulator's leading

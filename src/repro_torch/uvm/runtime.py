@@ -16,8 +16,8 @@ A tenant-tagged trace (a :func:`repro_torch.uvm.trace.concurrent` merge,
 Section V-F) runs through a :class:`~repro_torch.uvm.manager.TenantMux` by
 default: one pipeline per tenant, their combined prefetches and counters
 staged into one simulator over the merged device; ``multi_tenant=False``
-drives it through one merged manager instead (the paper's baseline).  The
-lockstep ``run_ours_many`` is not ported (ROADMAP A5).
+drives it through one merged manager instead (the paper's baseline).
+:func:`run_ours_many` drives many traces, one :func:`run_ours` each.
 
 Model, frequency table and simulator state live on the device (``"cuda"``
 unless the caller passes ``device="cpu"``).  Pretrained tables come from
@@ -339,10 +339,12 @@ def run_ours(
     reclass_hysteresis: int = 2,
     health=None,
     qos=None,
+    seed: int = 0,
     device: str | torch.device = "cuda",
 ) -> LearnedRunResult:
     """Drive one trace through the streaming manager + simulator on
-    ``device`` (a passed ``manager`` brings its own device).
+    ``device`` (a passed ``manager`` brings its own device; ``seed`` seeds
+    the simulator state, as a sim cell's does).
 
     A tenant-tagged trace goes through a :class:`TenantMux` unless
     ``multi_tenant=False`` (one manager over the merged stream, the Section
@@ -378,7 +380,7 @@ def run_ours(
             health=health, device=resolve_device(device),
         )
     nb, cap = mgr.cfg.n_blocks, mgr.cfg.capacity
-    state = S.init_state(nb, mgr.device)
+    state = S.init_state(nb, mgr.device, seed)
     blocks = trace.block.astype(np.int32)
     nxt = S.next_use_for(trace)
     ledger = _TenantLedger(trace, mgr) if trace.tenant is not None else None
@@ -400,3 +402,32 @@ def run_ours(
             ledger.account(g0, g1, outs)
     return _result(mgr, state, n, None if ledger is None else ledger.result())
 
+
+def run_ours_many(
+    traces: list[Trace],
+    pcfg: PredictorConfig | None = None,
+    tcfg: TrainConfig | None = None,
+    *,
+    tables: list[ModelTable] | None = None,
+    qos=None,
+    multi_tenant: bool | None = None,
+    **kw,
+) -> list[LearnedRunResult]:
+    """Run the learned system over many traces, one :func:`run_ours` per
+    lane (``kw`` are its keywords); each lane keeps its own manager and
+    simulator state, so its result is its serial run's.  The reference's
+    lockstep order (one ``evaluate_many`` and one ``train_group_many`` over
+    every lane per group) changes nothing while those run lane by lane; it
+    comes with stacking lanes into one launch per kernel (ROADMAP A5b).
+
+    ``tables`` gives each lane its pretrained table; ``qos`` (one
+    :class:`~repro_torch.uvm.api.specs.QosSpec`) opts every tenant-tagged
+    lane into per-tenant capacity partitioning, each with its own
+    controller, and raises before any run on an untagged lane."""
+    if qos is not None:
+        for trace in traces:
+            if not (trace.tenant is not None if multi_tenant is None else multi_tenant):
+                raise ValueError(f"qos= requires tenant-tagged lanes; trace {trace.name!r} has none")
+    return [run_ours(trace, pcfg, tcfg, table=tables[i] if tables is not None else None, qos=qos,
+                     multi_tenant=multi_tenant, **kw)
+            for i, trace in enumerate(traces)]

@@ -33,9 +33,10 @@ migrates; the builtin ``tree`` keeps its chunk-sliced step
 (:func:`_tree_migrate`), which :func:`_tree_mask` (the reference's
 whole-state mask) reproduces bit for bit.
 
-:func:`run` and :func:`run_batch` drive a whole trace (``run_batch`` runs
-its cells one after another; the reference's batched lanes are
-bit-identical to its per-cell runs).
+:func:`run` and :func:`run_batch` drive a whole trace, and
+:func:`run_segments_many` one segment of many traces (both run their cells
+or lanes one after another; the reference's batched lanes are
+bit-identical to its per-lane runs).
 
 Counters, per-access outputs and state arrays are bit-identical to the JAX
 package for every ported policy:
@@ -664,6 +665,32 @@ def run_batch(trace: Trace, cells: list[tuple[str, str, float]], *, seed: int = 
                             policy=policy, prefetch=prefetch, n_valid=trace.n_blocks, want_outs=False)
         states.append(st)
     return [state_stats(st) for st in states]
+
+
+def run_segments_many(
+    states: list[SimState],
+    segments: list[tuple[np.ndarray, np.ndarray]],  # (blocks, next_use) per lane
+    cells: list[tuple[str, str, int]],  # (policy, prefetch, capacity) per lane
+    n_valids: list[int],
+    *,
+    want_outs: bool = True,
+    evict_prefs: list | None = None,
+) -> list[tuple[SimState, dict | None]]:
+    """Run one trace segment per lane; one ``(new_state, outs)`` per lane.
+
+    The lanes run one after another through :func:`run_segment` (each with
+    its own rerun on plain run-length events when a periodic aggregate
+    faulted), which is what the reference's bucketed vmapped lanes give each
+    lane; its cells name the policy and prefetcher by id, these by name, as
+    :func:`run_batch`'s do.  An empty lane returns its state and empty
+    outputs.  ``evict_prefs`` (one entry per lane, ``None`` = no budget)
+    carries each lane's QoS leading victim key."""
+    eps = evict_prefs if evict_prefs is not None else [None] * len(states)
+    return [
+        run_segment(st, blocks, next_use, capacity=int(cap), policy=pol, prefetch=pf, n_valid=int(nv),
+                    want_outs=want_outs, evict_pref=ep)
+        for st, (blocks, next_use), (pol, pf, cap), nv, ep in zip(states, segments, cells, n_valids, eps)
+    ]
 
 
 # --- builtin registrations -----------------------------------------------------

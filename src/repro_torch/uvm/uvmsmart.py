@@ -28,11 +28,11 @@ from repro_torch.uvm import simulator as S
 from repro_torch.uvm.trace import Trace
 
 
-def run_uvmsmart(trace: Trace, *, oversubscription: float = 1.25, epoch: int = 2048,
+def run_uvmsmart(trace: Trace, *, oversubscription: float = 1.25, epoch: int = 2048, seed: int = 0,
                  device: str | torch.device = "cuda") -> dict:
     nb = S.bucket_blocks(trace.n_blocks)
     cap = S.capacity_for(trace.n_blocks, oversubscription)
-    state = S.init_state(nb, resolve_device(device))
+    state = S.init_state(nb, resolve_device(device), seed)
     classifier = PatternClassifier()
     blocks = trace.block.astype(np.int32)
     nxt = S.next_use_for(trace)

@@ -202,8 +202,11 @@ def test_chain_memo_and_surface(both):
 
 
 def test_runner_cli_and_paper_tables():
-    ctx = PTAB.Context("paper", device="cpu")
-    assert ctx._tables["fig11"] == PTAB.PAPER_TABLE_S123
+    # the paper preset's Fig. 11 table is its recipe's committed export (seed0=123)
+    got = PTAB.Context("paper", device="cpu").pretrained("fig11")
+    want = PTAB.R.load_pretrained(PTAB.PAPER_TABLE_S123, PC.CONFIG, "cpu")
+    assert sorted(got.slots) == sorted(want.slots)
+    assert all(torch.equal(got.slots[s].params[k], v) for s, e in want.slots.items() for k, v in e.params.items())
     with pytest.raises(NotImplementedError, match="Fig. 11"):
         PTAB.Context("quick", device="cpu").pretrained("fig11")
     with pytest.raises(SystemExit):  # not a figure of the runner

@@ -793,3 +793,25 @@ def test_tree_clone_equals_tree_on_the_card(dev):
         assert a.stats == b.stats
         for f in ("resident", "evicted_once", "last_access", "last_interval"):
             assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f
+
+
+def test_cli_sweep_on_the_card_equals_the_cpu(dev, tmp_path, capsys):
+    """``python -m repro_torch.uvm.cli sweep`` on the card prints the CPU
+    run's cell lines, launching ``evict_select``; a second pass is served
+    from the run store without a launch."""
+    from repro_torch.uvm import cli
+
+    argv = ["sweep", "--benchmarks", "ATAX", "NW", "--policies", "lru", "hpe", "--prefetchers", "demand", "tree",
+            "--scale", "0.25", "--cap", "1500"]
+    kernels.reset_launches()
+    assert cli.main([*argv, "--runs-dir", str(tmp_path / "card")]) == 0
+    card = capsys.readouterr().out.splitlines()
+    assert kernels.LAUNCHES["evict_select"] > 0
+    assert cli.main([*argv, "--runs-dir", str(tmp_path / "cpu"), "--device", "cpu"]) == 0
+    cpu = capsys.readouterr().out.splitlines()
+    assert card[:-1] == cpu[:-1] and len(card) == 9
+    kernels.reset_launches()
+    assert cli.main([*argv, "--runs-dir", str(tmp_path / "card")]) == 0
+    again = capsys.readouterr().out.splitlines()
+    assert again[:-1] == card[:-1] and " hits=8 computed=0 " in again[-1]
+    assert kernels.LAUNCHES["evict_select"] == 0

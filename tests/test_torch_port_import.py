@@ -94,6 +94,44 @@ def test_figures_entry_point_defaults_to_the_card():
     assert figures.Context(device="cpu").device.type == "cpu"
 
 
+def test_experiment_surface_imports_no_jax():
+    """``repro_torch.uvm.cli`` and ``repro_torch.uvm.api`` (Session, the run
+    store, the specs) and the serve state machine stand alone."""
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    child = _SERVE_CHILD.replace("import repro_torch.launch.serve", "import repro_torch.uvm.cli, repro_torch.uvm.api, "
+                                 "repro_torch.uvm.server, repro_torch.uvm.sweeps, repro_torch.launch.serve")
+    out = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_experiment_surface_defaults_to_the_card(tmp_path):
+    from repro_torch.configs.predictor_paper import SMOKE
+    from repro_torch.core.incremental import TrainConfig
+    from repro_torch.uvm import cli
+    from repro_torch.uvm import runtime as R
+    from repro_torch.uvm import trace as T
+    from repro_torch.uvm.api import RunStore, Session
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default device is usable here")
+    store = RunStore(tmp_path, enabled=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Session(store=store)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Session.paper(store=store)
+    tr = T.get_trace("AddVectors", 0.1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        R.run_ours_many([tr], SMOKE, TrainConfig(epochs=0))
+    for argv in (["run", "--benchmark", "ATAX", "--no-store"], ["sweep", "--benchmarks", "ATAX", "--no-store"],
+                 ["export", "--benchmark", "ATAX", "--no-store"], ["serve", "--input", str(tmp_path / "none")]):
+        assert cli.build_parser().parse_args(argv).device == "cuda"
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)
+    assert Session(store=store, device="cpu").device.type == "cpu"
+    assert R.run_ours_many([tr], SMOKE, TrainConfig(group_size=256, epochs=0), device="cpu")[0].n_accesses == len(tr)
+
+
 def test_port_sources_name_no_jax_import():
     for path in (SRC / "repro_torch").rglob("*.py"):
         for line in path.read_text().splitlines():
