@@ -6,6 +6,7 @@
     python3 chip_smoke.py --time-kernels LABEL
     python3 chip_smoke.py --time-training LABEL
     python3 chip_smoke.py --experiment-api
+    python3 chip_smoke.py --server
 
 Phases, in order; any failure exits non-zero:
 
@@ -91,10 +92,11 @@ Phases, in order; any failure exits non-zero:
               steps' loss and gradient norm and the update within the
               ``TRAIN_*`` limits, ``thrash_ce_fwd``/``_bwd`` launched once
               per step and ``flash_attention_bwd`` once per step, block and
-              layer; (b) the fine-tuned ``run_ours`` on Hotspot x1.5 from
-              the pretrained table within the ``RUN_*`` limits, host seconds
-              per stage, and a second run under ``torch.profiler`` that must
-              give identical stats and top-1; (c) the ``manager`` KV offload:
+              layer, and a second run of the group under ``torch.profiler``;
+              (b) the fine-tuned ``run_ours`` on Hotspot x1.5 from the
+              pretrained table within the ``RUN_*`` limits, host seconds per
+              stage, and a second run that must give identical stats and
+              top-1; (c) the ``manager`` KV offload:
               the qwen2 reference's page-mass stream replayed through
               ``LearnedOffloadManager`` from the JAX package's initial slots
               (``experiments/torch/serve_manager_ref.npz``) with equal stats
@@ -236,6 +238,37 @@ Phases, in order; any failure exits non-zero:
               byte) and a ``--resume`` from a snapshot after the log's first
               lines (the uninterrupted run's tail); (f) ``cli report``
               lists every stored run.  Host seconds and launches per piece.
+14. server  — the async fault-stream server (``repro_torch.uvm.server``)
+              against ``cli_quick_ref.json``'s serve streams: (a) an
+              in-process ``FaultStreamServer`` in each dispatch mode
+              (``serial``, ``fused``, ``vmap``) with ``run_loadgen``'s four
+              clients on the drift log and four on the churn log, all
+              concurrent: every client's records and summary the JAX
+              package's byte for byte, ``health_faults=0 fallbacks=0``, no
+              fallback record; ``fused`` and ``vmap`` gather more than one
+              lane per tick in fewer ticks than ``serial``, ``vmap`` stacks a
+              bucket of four or more lanes and launches ``flash_attention``
+              fewer times; (b) ``Trainer(CONFIG).evaluate_many`` over
+              ``STACK_BENCH``'s first groups at the paper preset from
+              ``pretrain_paper.npz``'s slots: each lane's ``correct`` and
+              ``pred`` its serial ``evaluate``'s, its logits by SHA-256, and
+              ``flash_attention`` launched ``2 * num_layers * rows`` times
+              against four times that serially; (c) a malformed and a
+              transport-chaos client beside two clean ones, whose streams
+              stay (a)'s, in a run where the event loop's thread runs no op
+              on the card and a profile finds every launch and copy on one
+              thread; (d) ``cli server --device cuda`` with checkpoints
+              and an AOT cache holding a copy of phase 2's build, killed with
+              SIGKILL after a named client's sixth action and restarted with
+              ``--resume``: the tail is the uninterrupted ``cli serve`` run's,
+              and the restarted process reports one AOT hit, no miss and no
+              fallback; (e) (a)'s eight clients per mode, at ``--rate 0``:
+              faults/s, p50 and p99 action latency (recorded, not gated).
+              The full script runs phase 14 in a second process of its own
+              (``--phase-14``), started with phase 10 and waited for after
+              phase 13, so its host numbers are taken beside phases 10-13.
+              ``--server`` runs it alone, with a fresh ``cli server`` that
+              builds into an empty AOT cache (one miss).
 
 The last lines are the card's ``nvidia-smi`` line, a ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -261,6 +294,7 @@ seconds per stage.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1831,6 +1865,8 @@ def train_group_check(dev) -> dict:
 
     res = train_group_run(dev)
     print("  train_group: " + json.dumps({k: v for k, v in res.items() if k not in ("loss", "grad_norm")}))
+    again = profile_run("train_group", lambda: train_group_run(dev))
+    check(again["n_steps"] == res["n_steps"], f"the profiled group took {again['n_steps']} steps")
     n = res["want_steps"]
     check(res["n_steps"] == n, f"the group took {res['n_steps']} steps, not {n}")
     check(res["loss_rtol_held"] <= TRAIN_STEP_RTOL and res["grad_norm_rtol_held"] <= TRAIN_STEP_RTOL,
@@ -1908,9 +1944,7 @@ def fine_tuned_check(dev) -> dict:
     for name in ("evict_select", "freq_update", "flash_attention", "flash_attention_bwd", "thrash_ce_fwd",
                  "thrash_ce_bwd"):
         check(launches[name] > 0, f"the fine-tuned run never launched {name}")
-    t0 = time.perf_counter()
-    again = profile_run("fine-tuned run", lambda: fine_tuned_run(dev))
-    print(f"  fine-tuned run: the profiled run and its report took {time.perf_counter() - t0:.1f} s")
+    again = fine_tuned_run(dev)
     check(again.stats == res.stats and again.top1 == res.top1,
           f"a second fine-tuned run gave other results: {again.stats} {again.top1} (not deterministic)")
     print(f"  fine-tuned run: within the limits; a second run gave identical stats and top-1; wall {wall:.3f} s")
@@ -3259,6 +3293,463 @@ def api_launch_checks(pieces: dict) -> None:
             check(pieces[name]["launches"][k] > 0, f"phase 13's {name} never launched {k}")
 
 
+# phase 14: the async fault-stream server.  Event-loop passes per tick (the
+# reference's default; scripts/rehearse_server_cpu.py prints how many
+# lanes a tick gathers with it)
+SERVER_GATHER_SPINS = 2
+SERVER_MODES = ("serial", "fused", "vmap")
+SERVER_CHAOS = "drop_batch=0.4,dup_batch=0.3,lose_feedback=0.5,seed=11"
+# (b): four benchmarks' first groups at the paper preset, stacked at CONFIG
+STACK_BENCH = ("ATAX", "BICG", "Hotspot", "StreamTriad")
+_LAUNCH_CALLS = ("Launch", "Memcpy", "Memset")  # runtime calls that put work on the card
+
+
+def _ops_on(device_type: str):
+    """A dispatch mode that counts, by name, the ops run on tensors of
+    ``device_type`` by the thread that enters it (dispatch modes are
+    thread-local, so other threads' ops pass it by)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(isinstance(t, torch.Tensor) and t.device.type == device_type
+                   for t in tree_flatten((args, kwargs, out))[0]):
+                self.ops[str(func)] = self.ops.get(str(func), 0) + 1
+            return out
+
+    return Ops()
+
+
+def _spawn_server(sock: str, extra: list, dev):
+    """Start ``python -m repro_torch.uvm.cli server`` in a fresh process;
+    :func:`_listening` waits for it to announce its socket."""
+    import os
+
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.uvm.cli", "server", "--socket", sock,
+                             "--device", str(dev.type), *map(str, extra)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=str(ROOT),
+                            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+
+
+def _listening(proc) -> None:
+    import select
+
+    deadline = time.time() + 180
+    banner = ""
+    while time.time() < deadline and not banner:
+        if select.select([proc.stdout], [], [], 1.0)[0]:
+            banner = proc.stdout.readline()
+        elif proc.poll() is not None:
+            break
+    if "# server listening" not in banner:
+        proc.kill()
+        rest = proc.communicate()[0]
+        raise SmokeFailure(f"cli server did not start: {banner}{rest[-2000:]}")
+
+
+def _stop_server(proc, sig) -> str:
+    """Signal a spawned server and return the rest of its output."""
+    proc.send_signal(sig)
+    try:
+        out = proc.communicate(timeout=120)[0]
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out = proc.communicate()[0]
+    return out
+
+
+def _aot_stats(line: str) -> dict:
+    """The counts of a ``# aot cache=DIR {...}`` line."""
+    return json.loads(line[line.index("{"):])
+
+
+async def _drive_named(sock: str, lines: list, *, n_actions=None) -> list:
+    """``hello job`` and ``lines`` on one connection; every output line (at
+    EOF, or once ``n_actions`` action records arrived)."""
+    import asyncio
+
+    reader, writer = await asyncio.open_unix_connection(sock)
+    writer.write((json.dumps({"hello": {"session": "job"}}) + "\n").encode())
+    for ln in lines:
+        writer.write((ln + "\n").encode())
+    await writer.drain()
+    if n_actions is None:
+        writer.write_eof()
+    out, acts = [], 0
+    try:
+        while True:
+            raw = await asyncio.wait_for(reader.readline(), timeout=120)
+            if not raw:
+                break
+            out.append(raw.decode().rstrip("\n"))
+            acts += out[-1].startswith('{"batch"')
+            if n_actions is not None and acts >= n_actions:
+                break
+    finally:
+        writer.close()
+    return out
+
+
+def server_path(dev, aot_miss: bool = False) -> dict:
+    """Phase 14: ``FaultStreamServer``, ``run_loadgen`` and ``cli server``
+    on the card, against ``experiments/torch/cli_quick_ref.json``'s serve
+    streams, in a temporary directory that is removed after.  With
+    ``aot_miss`` (``--server``) a fresh ``cli server`` also builds the
+    kernel library into an empty AOT cache.  Returns the launches of the
+    server runs."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_server_"))
+    try:
+        return _server(dev, tmp, aot_miss)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _server(dev, tmp: Path, aot_miss: bool) -> dict:
+    import shutil
+    import signal
+
+    from repro_torch.kernels._lib import LIBRARY
+
+    ref = json.loads(CLI_REF.read_text())
+    on = ["--device", str(dev.type)]
+    # (d)'s two cli server processes start now, so that importing torch and
+    # reaching the card overlap (a)-(c); the second binds its session (and
+    # reads the first one's snapshot) only when its client says hello
+    aot = []
+    if dev.type == "cuda":
+        (tmp / "aot").mkdir()
+        shutil.copy2(LIBRARY.path(), tmp / "aot" / LIBRARY.path().name)
+        aot = ["--aot-cache", tmp / "aot"]
+    ck = ["--checkpoint-dir", tmp / "ck"]
+    t_spawn = time.perf_counter()
+    procs = [_spawn_server(str(tmp / "k1.sock"), [*ck, "--checkpoint-every", 4, *aot], dev),
+             _spawn_server(str(tmp / "k2.sock"), [*ck, "--resume", *aot], dev)]
+    try:
+        return _server_checks(dev, tmp, aot_miss, ref, on, aot, procs, t_spawn)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                _stop_server(proc, signal.SIGKILL)
+
+
+def _server_checks(dev, tmp: Path, aot_miss: bool, ref: dict, on: list, aot: list, procs: list, t_spawn: float):
+    import asyncio
+    import hashlib
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.predictor_paper import CONFIG
+    from repro_torch.core import predictor as P
+    from repro_torch.core.features import DeltaVocab, FeatureStream
+    from repro_torch.core.incremental import TrainConfig, Trainer
+    from repro_torch.uvm import cli
+    from repro_torch.uvm import trace as T
+    from repro_torch.uvm.manager import ChaosSchedule, FaultInjector, SnapshotStore
+    from repro_torch.uvm.runtime import load_pretrained
+    from repro_torch.uvm.server import FaultStreamServer, ServerConfig, make_connector, run_loadgen
+
+    logs = {}
+    for name, argv in ref["cli"]["logs"].items():
+        path = tmp / f"{name}.jsonl"
+        cli_lines(["export", *argv, *on, "--no-store", "--out", path])
+        check(hashlib.sha256(path.read_bytes()).hexdigest() == ref["logs"][name]["sha256"],
+              f"the {name} log differs from the JAX package's")
+        logs[name] = [ln for ln in path.read_text().splitlines() if ln.strip() and not ln.startswith("#")]
+    mcfg = cli._manager_config(cli.build_parser().parse_args(["server", "--socket", "-", *on]))
+    runs = {}
+
+    def run(label, mode, clients, *, watch_threads=False):
+        """One in-process server in ``mode``; ``clients``: (log name, count,
+        run_loadgen keywords) groups, all concurrent.  Returns each group's
+        LoadStats and records the run's ticks, lanes, stacked buckets,
+        launches and seconds under ``label``.  With ``watch_threads`` the
+        event loop's thread counts every op it runs on the device (it must
+        run none), and on the card a profile of the run counts the threads
+        that launch or copy (there must be one)."""
+        cfg = ServerConfig(manager=mcfg, microbatch=mode != "serial", exec_mode="auto" if mode == "serial" else mode,
+                           gather_spins=SERVER_GATHER_SPINS)
+        stacked = []
+        stage = {"evaluate_many": 0.0, "train_group_many": 0.0}  # host seconds on the worker
+
+        def timed(name, fn):
+            def call(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    stage[name] += time.perf_counter() - t
+            return call
+
+        loop_ops = _ops_on(dev.type) if watch_threads else contextlib.nullcontext()
+
+        async def main():
+            with loop_ops:
+                return await serve()
+
+        async def serve():
+            server = FaultStreamServer(cfg, device=dev)
+            tr = server.trainer
+            inner = tr._evaluate_bucket
+            tr._evaluate_bucket = lambda p, f, n: len(p) > 1 and stacked.append(len(p)) or inner(p, f, n)
+            tr.evaluate_many, tr.train_group_many = (timed(k, getattr(tr, k)) for k in stage)
+            sock = str(tmp / f"{label}.sock")
+            await server.start(path=sock)
+            worker = await server.dispatcher.call(threading.get_native_id)
+            try:
+                _sync(dev)
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                stats = await asyncio.gather(*(run_loadgen(make_connector(f"unix:{sock}"), logs[name], n, **kw)
+                                               for name, n, kw in clients))
+                await server.dispatcher.call(_sync, dev)
+                wall = time.perf_counter() - t0
+                launches = dict(kernels.LAUNCHES)
+            finally:
+                await server.shutdown()
+            return stats, server.dispatcher, launches, wall, worker
+
+        prof = None
+        if watch_threads and dev.type == "cuda":
+            from torch.profiler import ProfilerActivity, profile as torch_profile
+
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = asyncio.run(main())
+        else:
+            out = asyncio.run(main())
+        stats, d, launches, wall, worker = out
+        runs[label] = {"ticks": d.n_ticks, "max_eval_lanes": d.max_eval_lanes, "stacked": stacked,
+                       "host_s": wall, "stage_s": stage, "launches": launches}
+        if watch_threads:
+            runs[label]["loop_ops"] = loop_ops.ops
+            check(not loop_ops.ops, f"({label}) the event loop's thread ran ops on the {dev.type}: {loop_ops.ops}")
+        if prof is not None:
+            # the raw events' runtime calls on the host (parsing them into
+            # FunctionEvents takes seconds); the profiler numbers threads its
+            # own way, not as the threading module does
+            events = [e for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == torch.autograd.DeviceType.CPU and any(k in e.name() for k in _LAUNCH_CALLS)]
+            threads = {e.start_thread_id() for e in events}
+            runs[label]["launching_threads"] = {"calls": len(events), "threads": sorted(threads), "worker": worker,
+                                                "loop": threading.get_native_id()}
+            check(events and len(threads) == 1,
+                  f"({label}) work reached the card from threads {threads} ({len(events)} calls)")
+        return stats
+
+    def held(label, client, name, *, clean=True) -> None:
+        want = ref["logs"][name]
+        check(client.actions == want["records"], f"({label}) client {client.idx}'s {name} stream differs from the "
+              "JAX package's: " + first_difference(client.actions, want["records"]))
+        if clean:
+            check(client.errors == 0 and client.comments[-1] == want["summary"]
+                  and "health_faults=0 fallbacks=0" in client.comments[-1]
+                  and not any('"fallback": true' in a for a in client.actions),
+                  f"({label}) client {client.idx}: {client.comments[-1:]} against {want['summary']}")
+
+    # (a) every mode, four clients on each log, all concurrent
+    a_stats = {}
+    for mode in SERVER_MODES:
+        stats = a_stats[mode] = run(mode, mode, [("drift", 4, {}), ("churn", 4, {})])
+        for name, st in zip(("drift", "churn"), stats):
+            for c in st.per_client:
+                held(f"a/{mode}", c, name)
+    a = {m: runs[m] for m in SERVER_MODES}
+    print("  (a) 4 drift + 4 churn clients per mode, every stream the JAX package's byte for byte, "
+          "health_faults=0 fallbacks=0: " + json.dumps({m: {k: v for k, v in a[m].items() if k != "launches"}
+                                                        for m in SERVER_MODES}))
+    print("      launches: " + json.dumps({m: {k: c for k, c in a[m]["launches"].items() if c} for m in SERVER_MODES}))
+    for mode in ("fused", "vmap"):
+        check(a[mode]["max_eval_lanes"] > 1 and a[mode]["ticks"] < a["serial"]["ticks"],
+              f"(a) {mode} gathered nothing: {a[mode]['ticks']} ticks, {a[mode]['max_eval_lanes']} lanes at most")
+    check(max(a["vmap"]["stacked"], default=0) >= 4 and not a["fused"]["stacked"],
+          f"(a) vmap stacked no bucket of four lanes: {a['vmap']['stacked']}")
+    if dev.type == "cuda":
+        fa = {m: a[m]["launches"]["flash_attention"] for m in SERVER_MODES}
+        check(fa["vmap"] < fa["fused"] == fa["serial"], f"(a) flash_attention launches per mode: {fa}")
+    # (b) a stacked bucket at the paper width
+    table = load_pretrained(WEIGHTS, CONFIG, dev)
+    slots = sorted(table.slots)
+    params, fs_list, na = [], [], []
+    for i, b in enumerate(STACK_BENCH):
+        vocab = DeltaVocab(CONFIG.delta_vocab)
+        stream = FeatureStream(T.get_trace(b, 1.0), vocab, CONFIG.history, page_vocab=CONFIG.page_vocab,
+                               pc_vocab=CONFIG.pc_vocab, tb_vocab=CONFIG.tb_vocab)
+        fs_list.append(stream.windows(0, 2048))
+        na.append(max(vocab.n_classes, 2))
+        params.append(table.slots[slots[i % len(slots)]].params)
+    trainer = Trainer(CONFIG, TrainConfig(2048, 0, 256), device=dev)
+
+    def timed_launches(fn):
+        _sync(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        return out, time.perf_counter() - t0, kernels.LAUNCHES["flash_attention"]
+
+    trainer.evaluate_many(params, fs_list, na)  # first call: shapes and allocator warm
+    serial, serial_s, serial_fa = timed_launches(lambda: [trainer.evaluate(*x) for x in zip(params, fs_list, na)])
+    many, many_s, many_fa = timed_launches(lambda: trainer.evaluate_many(params, fs_list, na))
+    for b, (sc, sp), (mc, mp) in zip(STACK_BENCH, serial, many):
+        check(np.array_equal(sc, mc) and np.array_equal(sp, mp) and sp.dtype == mp.dtype,
+              f"(b) {b}'s stacked lane differs from its serial evaluate")
+    n_rows = -(-len(fs_list[0]) // 256)
+    want_fa = 2 * CONFIG.num_layers * n_rows if dev.type == "cuda" else 0
+    check(many_fa == want_fa and serial_fa == len(STACK_BENCH) * want_fa,
+          f"(b) flash_attention launched {many_fa} times stacked and {serial_fa} serially (want {want_fa})")
+    digests = {"stacked": [], "serial": []}
+    with torch.no_grad():
+        staged = [trainer._stage(fs) for fs in fs_list]
+        sched = [trainer._eval_schedule(len(fs)) for fs in fs_list]
+        per_lane = {k: [[] for _ in fs_list] for k in digests}
+        for r in range(n_rows):
+            batches = [{k: v[torch.as_tensor(s[r], device=dev)] for k, v in st[0].items()}
+                       for st, s in zip(staged, sched)]
+            for j, (lg, _) in enumerate(P.forward_many(params, batches, CONFIG)):
+                per_lane["stacked"][j].append(lg)
+            for j, (p, bt) in enumerate(zip(params, batches)):
+                per_lane["serial"][j].append(P.forward(p, bt, CONFIG)[0])
+        for k in digests:
+            digests[k] = [tensor_sha(torch.cat(ls)) for ls in per_lane[k]]
+    check(digests["stacked"] == digests["serial"], f"(b) stacked logits differ from the serial ones: {digests}")
+    print(f"  (b) evaluate_many at CONFIG over {', '.join(STACK_BENCH)}: " + json.dumps({
+        "lanes": [len(fs) for fs in fs_list], "rows": n_rows, "serial_s": serial_s, "stacked_s": many_s,
+        "flash_attention": {"serial": serial_fa, "stacked": many_fa}, "logits_sha256": digests["stacked"],
+        "top1": [float(c.mean()) for c, _ in many]}))
+    # (c) isolation: a malformed client and a transport-chaos client beside two clean ones
+    [st] = run("isolation", "fused", [("drift", 4, {"malformed_every": 3, "malformed_client": 2,
+                                                    "chaos_schedules": {3: FaultInjector(ChaosSchedule.parse(
+                                                        SERVER_CHAOS))}})], watch_threads=True)
+    per = st.per_client
+    for c in per[:2]:
+        held("c", c, "drift")
+    held("c", per[2], "drift", clean=False)
+    check(per[2].malformed_sent > 0 and per[2].errors == per[2].malformed_sent and st.errors == per[2].errors,
+          f"(c) malformed client: sent {per[2].malformed_sent}, errors {per[2].errors} (all clients {st.errors})")
+    check(per[3].actions and all(json.loads(x)["batch"] > 0 for x in per[3].actions), "(c) the chaos client's stream")
+    print(f"  (c) isolation: 2 clean clients the JAX package's, malformed client {per[2].errors} errors for "
+          f"{per[2].malformed_sent} malformed lines and its stream undisturbed, chaos client {len(per[3].actions)} "
+          f"records; {runs['isolation']['host_s']:.2f} s; ops of the event loop's thread on the {dev.type}: "
+          f"{json.dumps(runs['isolation']['loop_ops'])}; launches and copies by thread: "
+          f"{json.dumps(runs['isolation'].get('launching_threads'))}")
+    # (d) kill -9 and --resume of a cli server subprocess, its AOT cache a copy of this process's build
+    stream, clock = [], 0
+    for ln in logs["drift"]:
+        clock += len(json.loads(ln)["pages"])
+        stream += [ln, json.dumps({"feedback": {"fault_count": clock}})]
+    (tmp / "fb.jsonl").write_text("\n".join(stream) + "\n")
+    whole = cli_lines(["serve", "--input", tmp / "fb.jsonl", *on])
+    acts = [ln for ln in whole if ln.startswith("{")]
+    t0 = time.perf_counter()
+    _listening(procs[0])
+    t_up = time.perf_counter() - t_spawn
+    try:
+        first = asyncio.run(_drive_named(str(tmp / "k1.sock"), stream[:11], n_actions=6))
+    finally:
+        _stop_server(procs[0], signal.SIGKILL)
+    t_killed = time.perf_counter() - t0
+    check(sum(ln.startswith('{"batch"') for ln in first) == 6 and SnapshotStore(str(tmp / "ck" / "job")).latest_step()
+          == 4, f"(d) the killed server's snapshot: {SnapshotStore(str(tmp / 'ck' / 'job')).latest_step()}")
+    _listening(procs[1])
+    try:
+        res = asyncio.run(_drive_named(str(tmp / "k2.sock"), stream))
+    finally:
+        rest = _stop_server(procs[1], signal.SIGTERM).splitlines()
+    check(any(ln.startswith("# resumed batch=4 ") for ln in res)
+          and [ln for ln in res if ln.startswith("{")] == acts[4:] and res[-1] == whole[-1],
+          "(d) the resumed stream differs from the uninterrupted run's tail")
+    aot_line = [ln for ln in rest if ln.startswith("# aot cache=")]
+    if aot:
+        check(len(aot_line) == 1 and _aot_stats(aot_line[0]) == {"hits": 1, "misses": 0, "fallbacks": 0},
+              f"(d) the restarted server's AOT line: {aot_line}")
+    check(rest and rest[-1].startswith("# server sessions=1 refused=0 idle_closed=0 resumed=1 "),
+          f"(d) the restarted server's summary: {rest[-1:]}")
+    d_out = {"resumed_at": 4, "records": len(acts), "aot": aot_line[0] if aot_line else None,
+             "listening_after_s": t_up, "killed_at_s": t_killed, "host_s": time.perf_counter() - t0}
+    if aot_miss and dev.type == "cuda":
+        t0 = time.perf_counter()
+        proc = _spawn_server(str(tmp / "m.sock"), ["--aot-cache", tmp / "aot_fresh"], dev)
+        _listening(proc)
+        rest = _stop_server(proc, signal.SIGTERM).splitlines()
+        miss = [ln for ln in rest if ln.startswith("# aot cache=")]
+        check(len(miss) == 1 and _aot_stats(miss[0]) == {"hits": 0, "misses": 1, "fallbacks": 0}
+              and len(list((tmp / "aot_fresh").glob("librepro_torch_kernels_*.so"))) == 1,
+              f"(d) a fresh AOT cache: {miss}")
+        d_out["aot_miss"] = {"line": miss[0], "host_s": time.perf_counter() - t0}
+    print("  (d) kill -9 and --resume: " + json.dumps(d_out))
+    # (e) load: (a)'s eight concurrent clients per mode, every one sending its whole log at once
+    e_out = {}
+    for mode in SERVER_MODES:
+        faults, wall = sum(st.faults for st in a_stats[mode]), max(st.wall_s for st in a_stats[mode])
+        lat = [x for st in a_stats[mode] for c in st.per_client for x in c.latencies_ms]
+        e_out[mode] = {"faults": faults, "wall_s": wall, "faults_per_s": faults / wall,
+                       "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+                       "stage_s": runs[mode]["stage_s"]}
+    print(f"  (e) load, (a)'s 4 drift + 4 churn clients, --rate 0 "
+          f"({nvidia_smi_line() if dev.type == 'cuda' else 'cpu'}): " + json.dumps(e_out))
+    launches = {k: sum(v["launches"][k] for v in runs.values()) for k in kernels.LAUNCHES}
+    if dev.type == "cuda":
+        for k in ("freq_update", "flash_attention", "flash_attention_bwd", "thrash_ce_fwd", "thrash_ce_bwd"):
+            check(all(v["launches"][k] > 0 for v in runs.values()), f"phase 14: a server run never launched {k}")
+    return launches
+
+
+PHASE14_KEY = "phase_14_launches"
+
+
+class Phase14Process:
+    """Phase 14 in a process of its own (``chip_smoke.py --phase-14``), so
+    that it runs beside later phases of this one; its output goes to a
+    temporary file until :meth:`result`, which waits for it."""
+
+    def __init__(self):
+        import tempfile
+
+        self.log = tempfile.TemporaryFile(mode="w+")
+        self.proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--phase-14"],
+                                     stdout=self.log, stderr=subprocess.STDOUT, text=True, cwd=str(ROOT))
+
+    def result(self, timeout: float = 600) -> tuple[dict, float]:
+        """Wait, relay its phase lines, and return its launches and seconds;
+        raises :class:`SmokeFailure` if it failed."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        self.log.seek(0)
+        lines = self.log.read().splitlines()
+        self.log.close()
+        body = lines[next((i + 1 for i, ln in enumerate(lines) if ln.startswith("[2/14]")), 0):]
+        for ln in body:
+            if not ln.startswith("{") and "phase 14 alone took" not in ln:
+                print(ln)
+        last = json.loads(lines[-1]) if rc == 0 and lines and lines[-1].startswith("{") else {}
+        check(PHASE14_KEY in last, f"phase 14's process exited with {rc}: " + "\n".join(lines[-20:]))
+        return last[PHASE14_KEY], last["seconds"]
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
 def main() -> int:
     import argparse
 
@@ -3274,6 +3765,12 @@ def main() -> int:
                          "run_ours (once) and print one JSON line headed LABEL")
     ap.add_argument("--experiment-api", action="store_true",
                     help="after the build, run phase 13 alone (no result line)")
+    ap.add_argument("--server", action="store_true",
+                    help="after the build, run phase 14 alone, and a cli server that builds the kernels into an "
+                         "empty AOT cache (no result line)")
+    ap.add_argument("--phase-14", action="store_true",
+                    help="after the build, run phase 14 alone and print its launches as the last line (the full "
+                         "script runs this beside phases 10-13)")
     args = ap.parse_args()
     try:
         import torch
@@ -3290,17 +3787,18 @@ def main() -> int:
         print(f"chip_smoke: the port (src/repro_torch) is not next to this script: {exc}", file=sys.stderr)
         return 2
     start = time.perf_counter()
+    phase14 = None
     try:
         dev = torch.device("cuda", 0)
         name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
         smi = nvidia_smi_line()
-        print(f"[1/13] device: {name} (count {count}); nvidia-smi: {smi}")
+        print(f"[1/14] device: {name} (count {count}); nvidia-smi: {smi}")
         print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
         t0 = time.perf_counter()
         LIBRARY.cdll()
         how = "built" if LIBRARY.build_seconds is not None else "loaded the existing build"
-        print(f"[2/13] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
+        print(f"[2/14] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
         for line in LIBRARY.ptxas_log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line or line.startswith("=="):
                 print("      " + line.strip())
@@ -3320,7 +3818,16 @@ def main() -> int:
                   + json.dumps({k: c for k, c in launches.items() if c}))
             return 0
 
-        print(f"[3/13] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
+        if args.server or args.phase_14:
+            t14 = time.perf_counter()
+            launches = server_path(dev, aot_miss=args.server)
+            print(f"      phase 14 alone took {time.perf_counter() - t14:.1f} s; launches "
+                  + json.dumps({k: c for k, c in launches.items() if c}))
+            if args.phase_14:
+                print(json.dumps({PHASE14_KEY: launches, "seconds": time.perf_counter() - t14}))
+            return 0
+
+        print(f"[3/14] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
         rows = [kernel_evict_select(dev), *kernel_freq_table(dev), kernel_flash_attention(dev),
                 kernel_flash_attention_bf16(dev), kernel_flash_attention_bwd(dev), kernel_decode_attention(dev),
                 kernel_ssd_scan(dev), *kernel_thrash_ce(dev)]
@@ -3339,16 +3846,16 @@ def main() -> int:
               f"step {tf['step_device_ops_per_call']}")
 
         by_path = {}
-        print(f"[4/13] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
+        print(f"[4/14] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         _, by_path["run_ours"] = main_path(dev)
-        print(f"[5/13] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
+        print(f"[5/14] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["serve"], qwen2_engine, qwen2_prompt = serve_path(dev)
-        print(f"[6/13] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
+        print(f"[6/14] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["serve_mamba2"] = serve_mamba2_path(dev)
-        print(f"[7/13] train: one train_group, the fine-tuned run_ours (Hotspot x1.5, CONFIG, TrainConfig()) and the "
+        print(f"[7/14] train: one train_group, the fine-tuned run_ours (Hotspot x1.5, CONFIG, TrainConfig()) and the "
               f"manager KV offload (qwen2-0.5b full width), on the card (at {time.perf_counter() - start:.0f} s)")
         by_path["train_group"] = train_group_check(dev)
         print(f"      (b) at {time.perf_counter() - start:.0f} s")
@@ -3356,40 +3863,48 @@ def main() -> int:
         print(f"      (c) at {time.perf_counter() - start:.0f} s")
         by_path["serve_manager"] = serve_manager_check(dev, qwen2_engine, qwen2_prompt)
         del qwen2_engine
-        print(f"[8/13] tables: the table runner at the paper preset, x1.25, 11 benchmarks (five simulator cells, "
+        print(f"[8/14] tables: the table runner at the paper preset, x1.25, 11 benchmarks (five simulator cells, "
               f"UVMSmart, frozen ours; fine-tuned ours on {len(TABLES_TUNED)}), on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["table6"], tables_ctx, tables_tuned = tables_path(dev)
-        print(f"[9/13] concurrent: Tables VII and VIII's cells, four pairs at the paper preset, x1.25 (frozen mux and "
+        print(f"[9/14] concurrent: Tables VII and VIII's cells, four pairs at the paper preset, x1.25 (frozen mux and "
               f"merged on all four; fine-tuned and Table VII on {', '.join(CONCURRENT_TUNED)}), on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["concurrent"] = concurrent_path(dev)
         t10 = time.perf_counter()
-        print(f"[10/13] figures: Figs. 3, 12, 13 and 14's cells on {', '.join(FIG3_BENCH)} and Figs. 4 and 11's "
+        phase14 = Phase14Process()
+        print(f"[10/14] figures: Figs. 3, 12, 13 and 14's cells on {', '.join(FIG3_BENCH)} and Figs. 4 and 11's "
               f"protocols on {FIG_TUNED} at the paper preset, on the card (at {t10 - start:.0f} s)")
         by_path["figures"] = figures_path(dev, tables_ctx, tables_tuned)
         print(f"      phase 10 took {time.perf_counter() - t10:.1f} s")
         t11 = time.perf_counter()
-        print(f"[11/13] zoo and QoS: the JAX package's initial weights, Fig. 10's four predictor kinds on "
+        print(f"[11/14] zoo and QoS: the JAX package's initial weights, Fig. 10's four predictor kinds on "
               f"{FIG10_BENCH}, Table IX's first drift trace, Table X's StreamTriad+RandomScan under budgets and the "
               f"random policy, on the card (at {t11 - start:.0f} s)")
         by_path["zoo_qos"] = zoo_qos_path(dev)
         print(f"      phase 11 took {time.perf_counter() - t11:.1f} s; launches "
               + json.dumps({k: c for k, c in by_path["zoo_qos"].items() if c}))
         t12 = time.perf_counter()
-        print(f"[12/13] fault tolerance: snapshots of the manager (Hotspot frozen, ATAX fine-tuned), the mux "
+        print(f"[12/14] fault tolerance: snapshots of the manager (Hotspot frozen, ATAX fine-tuned), the mux "
               f"(StreamTriad+2DCONV) and the KV offload, the health machine under chaos, plug-ins through run_batch "
               f"and the fault log, on the card (at {t12 - start:.0f} s)")
         by_path["fault_tolerance"] = fault_tolerance_path(dev)
         print(f"      phase 12 took {time.perf_counter() - t12:.1f} s; launches "
               + json.dumps({k: c for k, c in by_path["fault_tolerance"].items() if c}))
         t13 = time.perf_counter()
-        print(f"[13/13] experiment API: cli sweep, sweep --spec, run, export, serve (checkpoint and resume) and "
+        print(f"[13/14] experiment API: cli sweep, sweep --spec, run, export, serve (checkpoint and resume) and "
               f"report on a temporary run store, and run_ours_many over {', '.join(API_LANES)} and "
               f"{'+'.join(API_PAIR)}, on the card (at {t13 - start:.0f} s)")
         by_path["experiment_api"] = experiment_api_path(dev, tables_ctx)
         print(f"      phase 13 took {time.perf_counter() - t13:.1f} s; launches "
               + json.dumps({k: c for k, c in by_path["experiment_api"].items() if c}))
+        t14 = time.perf_counter()
+        print(f"[14/14] server: FaultStreamServer in every dispatch mode with run_loadgen's clients on the drift and "
+              f"churn logs, a stacked evaluate_many at CONFIG, isolation, kill -9 and --resume of cli server with its "
+              f"AOT cache, and load, on the card, in a process started with phase 10 (at {t14 - start:.0f} s)")
+        by_path["server"], seconds = phase14.result()
+        print(f"      phase 14 took {seconds:.1f} s beside phases 10-13, and {time.perf_counter() - t14:.1f} s more "
+              "here; launches " + json.dumps({k: c for k, c in by_path["server"].items() if c}))
         for r in rows:
             r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}
             r["launches"] = sum(r["launches_by_path"].values())
@@ -3398,6 +3913,9 @@ def main() -> int:
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    finally:
+        if phase14 is not None:
+            phase14.kill()
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

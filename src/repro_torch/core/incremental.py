@@ -82,38 +82,77 @@ class Trainer:
         to = lambda a: torch.tensor(np.asarray(a), device=self.device)
         return {k: to(getattr(fs, k)) for k in ("page", "delta", "pc", "tb")}, to(fs.label)
 
-    @torch.no_grad()
     def evaluate(self, params, fs: FeatureSet, n_active: int):
         """Top-1 correctness per sample + predicted class ids (numpy), with
         one host sync for the whole group."""
-        n = len(fs)
-        if n == 0:
+        if len(fs) == 0:
             return np.zeros(0, bool), np.zeros(0, np.int32)
-        feats, labels = self._stage(fs)
-        pidx = torch.tensor(self._eval_schedule(n), device=self.device)
-        correct, pred = [], []
-        for idx in pidx:
-            logits, _ = self.forward(params, {k: v[idx] for k, v in feats.items()})
-            p = predictor.mask_inactive(logits, n_active).argmax(dim=-1)
-            pred.append(p)
-            correct.append(p == labels[idx])
-        correct = torch.cat(correct)[:n].cpu().numpy()
-        pred = torch.cat(pred)[:n].to(torch.int32).cpu().numpy()
-        return correct, pred
+        return self._evaluate_bucket([params], [fs], [n_active])[0]
 
-    #: the JAX package stacks a bucket of lanes into one vmapped dispatch
-    #: from this many lanes on; below it, it runs them one by one
+    #: from this many lanes of one bucket on, :meth:`evaluate_many` stacks
+    #: them (the JAX package's threshold for its vmapped dispatch); below
+    #: it, it runs them one by one
     MIN_VMAP_LANES = 4
 
     def evaluate_many(self, params_list: list, fs_list: list, n_active_list: list) -> list:
         """:meth:`evaluate` across lanes (one model and feature group per
-        lane: a mux's tenants, or many benchmarks), one ``(correct, pred)``
-        per lane; an empty lane gives empty arrays.  Every lane runs through
-        :meth:`evaluate` in turn, which is what the JAX package does below
-        ``MIN_VMAP_LANES`` lanes a bucket; stacking a bucket into one
-        launch per kernel, with ``run_ours_many``'s lockstep order, is
-        ROADMAP A5b."""
-        return [self.evaluate(p, fs, na) for p, fs, na in zip(params_list, fs_list, n_active_list)]
+        lane: a mux's tenants, a server's sessions, or many benchmarks), one
+        ``(correct, pred)`` per lane; an empty lane gives empty arrays.
+
+        The lanes are bucketed as the JAX package buckets them, by
+        ``(pow2_bucket(n, 1024), its padded schedule rows)``.  A bucket of
+        fewer than ``MIN_VMAP_LANES`` lanes, or of a kind other than
+        ``transformer`` (which launch no attention), runs through
+        :meth:`evaluate` lane by lane.  A larger transformer bucket is
+        stacked: for each eval-schedule row one
+        :func:`~repro_torch.core.predictor.forward_many` covers every lane
+        that has the row, so the attention launches once per block and
+        layer for the whole bucket, and the bucket has one host sync.
+        Every lane's results are bit for bit its :meth:`evaluate`'s.  The
+        bucket is not padded to a power of two of lanes (the JAX package
+        pads it to reuse a compiled shape, which the port has no use for)."""
+        results: list = [None] * len(fs_list)
+        buckets: dict = {}
+        for i, fs in enumerate(fs_list):
+            n = len(fs)
+            if n == 0:
+                results[i] = self.evaluate(params_list[i], fs, n_active_list[i])
+                continue
+            rows = -(-n // self.tcfg.batch_size)
+            buckets.setdefault((pow2_bucket(n, 1024), pow2_bucket(rows, 8)), []).append(i)
+        for lanes in buckets.values():
+            stack = len(lanes) >= self.MIN_VMAP_LANES and self.kind == "transformer"
+            for group in [lanes] if stack else [[i] for i in lanes]:
+                args = ([a[i] for i in group] for a in (params_list, fs_list, n_active_list))
+                for i, res in zip(group, self._evaluate_bucket(*args)):
+                    results[i] = res
+        return results
+
+    @torch.no_grad()
+    def _evaluate_bucket(self, params_list: list, fs_list: list, n_active_list: list) -> list:
+        """:meth:`evaluate` of non-empty lanes in one pass over their
+        schedule rows, with one host sync for all of them.  Several lanes
+        are for the transformer kind only: each row's lanes share one
+        :func:`~repro_torch.core.predictor.forward_many`."""
+        staged = [self._stage(fs) for fs in fs_list]
+        pidx = [torch.tensor(self._eval_schedule(len(fs)), device=self.device) for fs in fs_list]
+        correct: list = [[] for _ in fs_list]
+        pred: list = [[] for _ in fs_list]
+        for r in range(max(len(p) for p in pidx)):
+            lanes = [j for j, p in enumerate(pidx) if r < len(p)]
+            params = [params_list[j] for j in lanes]
+            batches = [{k: v[pidx[j][r]] for k, v in staged[j][0].items()} for j in lanes]
+            out = (predictor.forward_many(params, batches, self.pcfg) if len(lanes) > 1
+                   else [self.forward(params[0], batches[0])])
+            for j, (logits, _) in zip(lanes, out):
+                p = predictor.mask_inactive(logits, n_active_list[j]).argmax(dim=-1)
+                pred[j].append(p)
+                correct[j].append(p == staged[j][1][pidx[j][r]])
+        ns = [len(fs) for fs in fs_list]
+        flat_c = torch.cat([torch.cat(c)[:n] for c, n in zip(correct, ns)]).cpu().numpy()
+        flat_p = torch.cat([torch.cat(p)[:n] for p, n in zip(pred, ns)]).to(torch.int32).cpu().numpy()
+        bounds = np.cumsum([0, *ns])
+        return [(flat_c[lo:hi], flat_p[lo:hi]) for lo, hi in zip(bounds[:-1], bounds[1:])]
 
     def train_group_many(self, entries: list, fs_list: list, n_active_list: list, *, in_et_list=None,
                          use_lucir=False) -> list:
@@ -122,8 +161,9 @@ class Trainer:
         state stays unset, its ``n_updates`` unbumped); the others get their
         optimizer state first, then train one by one in the JAX package's
         bucket order (sample bucket, step bucket, LUCIR eligibility, thrash
-        flags present).  As in :meth:`evaluate_many`, one launch per bucket
-        waits for ROADMAP A5b."""
+        flags present).  Stacking a bucket into one launch per kernel, as
+        :meth:`evaluate_many` does, needs a ``thrash_ce`` launch that takes a
+        ``mu`` and an ``n_active`` per lane (ROADMAP A5c)."""
         tc = self.tcfg
         in_et_list = in_et_list if in_et_list is not None else [None] * len(entries)
         buckets: dict = {}

@@ -56,24 +56,43 @@ def init(seed: int, cfg: PredictorConfig, device="cuda", dtype=torch.float32):
     return init_params_jax(seed, param_specs(cfg), dtype, device)
 
 
-def _run_block(params, pre, x, cfg: PredictorConfig):
+def _run_blocks(params_list: list, pre: str, xs: list, cfg: PredictorConfig) -> list:
+    """The ``pre`` ("reg" or "irr") stack of every lane, each layer through
+    one :func:`repro_torch.models.dense.block_many` for all lanes."""
     bc = _block_cfg(cfg)
-    positions = torch.arange(cfg.history, dtype=torch.int32, device=x.device)
-    stack = subtree(params, pre)
+    positions = torch.arange(cfg.history, dtype=torch.int32, device=xs[0].device)
+    stacks = [subtree(p, pre) for p in params_list]
     for layer in range(cfg.num_layers):
-        x, _ = dense.block({k: v[layer] for k, v in stack.items()}, x, bc, positions=positions)
-    return L.apply_norm(params, f"{pre}_final", x, bc)
+        lps = [{k: v[layer] for k, v in st.items()} for st in stacks]
+        xs = [x for x, _ in dense.block_many(lps, xs, bc, positions=positions)]
+    return [L.apply_norm(p, f"{pre}_final", x, bc) for p, x in zip(params_list, xs)]
+
+
+def forward_many(params_list: list, batches: list, cfg: PredictorConfig) -> list:
+    """The predictor for many lanes (one model and batch each; a batch is
+    {page, delta, pc, tb}, each (B, T) int), with one attention launch per
+    block and layer for all of them.  Returns one ``(logits, features)``
+    per lane, features (B, d) fp32.  A lane's results do not depend on the
+    other lanes: its GEMMs are its own calls on its own tensors, and the
+    attention computes every row of every lane on its own."""
+    embs = []
+    for p, b in zip(params_list, batches):
+        pos = p["pos"][None]
+        embs.append((F.embedding(b["page"], p["embed/page"]) + F.embedding(b["delta"], p["embed/delta"]) + pos,
+                     F.embedding(b["pc"], p["embed/pc"]) + F.embedding(b["tb"], p["embed/tb"]) + pos))
+    regs = _run_blocks(params_list, "reg", [e[0] for e in embs], cfg)
+    irrs = _run_blocks(params_list, "irr", [e[1] for e in embs], cfg)
+    out = []
+    for p, reg, irr in zip(params_list, regs, irrs):
+        f = torch.cat([p["gate/reg"] * reg[:, -1], p["gate/irr"] * irr[:, -1]], dim=-1)
+        f = (f @ p["head/proj"]).float()
+        out.append((cosine_logits(p, f, cfg), f))
+    return out
 
 
 def features(params, batch, cfg: PredictorConfig):
     """batch: {page, delta, pc, tb} each (B, T) int. Returns (B, d) fp32."""
-    pos = params["pos"][None]
-    reg_x = F.embedding(batch["page"], params["embed/page"]) + F.embedding(batch["delta"], params["embed/delta"]) + pos
-    irr_x = F.embedding(batch["pc"], params["embed/pc"]) + F.embedding(batch["tb"], params["embed/tb"]) + pos
-    reg_f = _run_block(params, "reg", reg_x, cfg)[:, -1]
-    irr_f = _run_block(params, "irr", irr_x, cfg)[:, -1]
-    f = torch.cat([params["gate/reg"] * reg_f, params["gate/irr"] * irr_f], dim=-1)
-    return (f @ params["head/proj"]).float()
+    return forward(params, batch, cfg)[1]
 
 
 def cosine_logits(params, f, cfg: PredictorConfig):
@@ -85,8 +104,7 @@ def cosine_logits(params, f, cfg: PredictorConfig):
 
 
 def forward(params, batch, cfg: PredictorConfig):
-    f = features(params, batch, cfg)
-    return cosine_logits(params, f, cfg), f
+    return forward_many([params], [batch], cfg)[0]
 
 
 def mask_inactive(logits, n_active: int):

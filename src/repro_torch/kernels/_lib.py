@@ -7,7 +7,9 @@ all started together, for ``sm_90a`` (Hopper); the objects link into
 ``build/torch_kernels/librepro_torch_kernels_<hash>.so`` at the root of the
 checkout, where ``<hash>`` covers the sources and flags, so an edited
 source never loads a stale build.  The build happens at first use and is
-published with an atomic rename.
+published with an atomic rename.  A library can build into and load from
+another directory (:meth:`KernelLibrary.use_build_dir`, which the serving
+process's compile-once cache uses).
 """
 from __future__ import annotations
 
@@ -47,9 +49,11 @@ _SIGNATURES = {
 
 
 class KernelLibrary:
-    """The built and loaded kernel library (one per process)."""
+    """The built and loaded kernel library (one per process), built into
+    ``build_dir``."""
 
-    def __init__(self):
+    def __init__(self, build_dir: Path = BUILD_DIR):
+        self.build_dir = Path(build_dir)
         self._lock = threading.Lock()
         self._cdll: ctypes.CDLL | None = None
         self._functions: dict = {}
@@ -74,7 +78,21 @@ class KernelLibrary:
         return h.hexdigest()[:16]
 
     def path(self) -> Path:
-        return BUILD_DIR / f"librepro_torch_kernels_{self.digest()}.so"
+        return self.build_dir / f"librepro_torch_kernels_{self.digest()}.so"
+
+    @property
+    def loaded(self) -> bool:
+        return self._cdll is not None
+
+    def use_build_dir(self, build_dir) -> None:
+        """Build into and load from ``build_dir`` from now on; raises once
+        the library is loaded from another directory."""
+        build_dir = Path(build_dir)
+        with self._lock:
+            if self._cdll is not None and build_dir.resolve() != self.build_dir.resolve():
+                raise RuntimeError(f"the kernel library is already loaded from {self.build_dir}; it cannot move to "
+                                   f"{build_dir} in this process")
+            self.build_dir = build_dir
 
     def build(self) -> Path:
         """Compile and link the library unless this source hash is built."""
@@ -82,8 +100,8 @@ class KernelLibrary:
         if target.exists():
             return target
         nvcc = self.nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f"tmp.{os.getpid()}.{threading.get_ident()}"
+        self.build_dir.mkdir(parents=True, exist_ok=True)
+        tmp = self.build_dir / f"tmp.{os.getpid()}.{threading.get_ident()}"
         tmp.mkdir(exist_ok=True)
         t0 = time.perf_counter()
         try:

@@ -2,7 +2,8 @@
 and the dense decoder-only LM family (qwen2).
 
 Layers are stacked along a leading "layers" axis of every parameter, as in
-the JAX package; :func:`block` runs one layer's slice, and the LM's
+the JAX package; :func:`block` runs one layer's slice (:func:`block_many`
+runs it for many lanes with one attention core), and the LM's
 :func:`backbone` and :func:`decode_step` loop over the layers in Python
 where the reference scans.  The LM functions expect params already cast to
 the compute dtype (:mod:`repro_torch.models.lm` casts them).  The KV cache
@@ -26,12 +27,24 @@ def block_specs(cfg, n_layers) -> dict[str, Spec]:
     return sp
 
 
+def block_many(lps, xs, cfg, *, positions, causal=True):
+    """:func:`block` for many lanes, each with its own layer params
+    ``lps[i]`` and input ``xs[i]``; the lanes share one attention core
+    (:func:`repro_torch.models.layers.self_attention_many`).  Returns one
+    ``(x, (k, v))`` per lane."""
+    att = L.self_attention_many([subtree(lp, "attn") for lp in lps],
+                                [L.apply_norm(lp, "norm1", x, cfg) for lp, x in zip(lps, xs)], cfg,
+                                positions=positions, causal=causal)
+    out = []
+    for lp, x, (h, kv) in zip(lps, xs, att):
+        x = x + h
+        h = L.mlp(subtree(lp, "mlp"), L.apply_norm(lp, "norm2", x, cfg), cfg)
+        out.append((x + h, kv))
+    return out
+
+
 def block(lp, x, cfg, *, positions, causal=True):
-    h, kv = L.self_attention(subtree(lp, "attn"), L.apply_norm(lp, "norm1", x, cfg), cfg,
-                             positions=positions, causal=causal)
-    x = x + h
-    h = L.mlp(subtree(lp, "mlp"), L.apply_norm(lp, "norm2", x, cfg), cfg)
-    return x + h, kv
+    return block_many([lp], [x], cfg, positions=positions, causal=causal)[0]
 
 
 def _check_supported(cfg) -> None:

@@ -97,12 +97,24 @@ def _project_qkv(p, x, cfg, positions):
     return q, k, v
 
 
+def self_attention_many(ps, xs, cfg, *, positions, causal=True):
+    """:func:`self_attention` for many lanes, each with its own params
+    ``ps[i]`` and input ``xs[i]``: every lane's projections are its own calls
+    on its own tensors, and one :func:`attention_core` covers all lanes, on
+    their q, k and v concatenated along the batch dimension (rows of
+    different lanes never mix in it).  One lane is not concatenated.
+    Returns one ``(out, (k, v))`` per lane."""
+    qkv = [_project_qkv(p, x, cfg, positions) for p, x in zip(ps, xs)]
+    if len(qkv) == 1:
+        att = [attention_core(*qkv[0], causal=causal)]
+    else:
+        att = attention_core(*map(torch.cat, zip(*qkv)), causal=causal).split([x.shape[0] for x in xs])
+    return [(torch.einsum("bshk,hkd->bsd", a, p["wo"]), (k, v)) for p, a, (_, k, v) in zip(ps, att, qkv)]
+
+
 def self_attention(p, x, cfg, *, positions, causal=True):
     """Full-sequence self attention. Returns (out, (k, v))."""
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    out = attention_core(q, k, v, causal=causal)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return out, (k, v)
+    return self_attention_many([p], [x], cfg, positions=positions, causal=causal)[0]
 
 
 def decode_self_attention(p, x, cfg, *, cache_k, cache_v, pos: int):

@@ -9,6 +9,8 @@
     PYTHONPATH=src python -m repro_torch.uvm.cli report
     PYTHONPATH=src python -m repro_torch.uvm.cli serve --input faults.jsonl --n-pages 4096
     PYTHONPATH=src python -m repro_torch.uvm.cli export --phases StreamTriad PtrChase --out faults.jsonl
+    PYTHONPATH=src python -m repro_torch.uvm.cli server --socket /tmp/uvm.sock
+    PYTHONPATH=src python -m repro_torch.uvm.cli loadgen --connect unix:/tmp/uvm.sock --input faults.jsonl
 
 Every executed cell is published to the content-addressed run store
 (``experiments/runs_torch/`` by default; ``--runs-dir`` relocates it), so a
@@ -61,6 +63,16 @@ record), and ``--inject`` runs a seeded chaos schedule against the live
 pipeline.  Note: ``--inject`` composed with ``--resume`` replays the
 stream-transport faults deterministically but not the dispatch-fault
 positions (the injector's RNG is not checkpointed).
+
+``server`` runs many ``serve`` sessions at once, one per connection on a
+unix socket and/or a TCP port (:class:`~repro_torch.uvm.server.core.
+FaultStreamServer`): each tick one worker thread dispatches every
+session's staged half together (``--engine vmap``: one ``evaluate_many``
+and one ``train_group_many`` over all of them; ``fused``: the serial calls
+in one hop; ``--serial``: one hop per session-tick), and every connection
+gets exactly the records ``serve`` would print for its lines.
+``loadgen`` replays a fault log over N concurrent connections and reports
+faults/s and the p50/p99 action latency.
 """
 from __future__ import annotations
 
@@ -345,6 +357,103 @@ def cmd_serve(args) -> int:
     return 2 if session.errors and args.strict else 0
 
 
+def cmd_server(args) -> int:
+    """Async fault-stream server: many concurrent serve sessions, one
+    cross-connection microbatched trainer dispatch per tick."""
+    import asyncio
+    import signal
+
+    from repro_torch.core.incremental import Trainer
+    from repro_torch.uvm.server.core import FaultStreamServer, ServerConfig
+
+    mcfg = _manager_config(args)
+    cfg = ServerConfig(
+        manager=mcfg, default_tenant=args.default_tenant,
+        shared_freq_table=args.shared_freq_table,
+        max_sessions=args.max_sessions, idle_timeout_s=args.idle_timeout,
+        gather_spins=args.gather_spins, microbatch=not args.serial,
+        exec_mode=args.engine,
+        checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every,
+        resume=args.resume, inject=args.inject,
+        qos_tiers=args.qos_tier, qos_stability=args.qos_stability,
+        qos_interval=args.qos_interval,
+    )
+    if args.socket is None and args.port is None:
+        print("# server needs --socket PATH and/or --port N", file=sys.stderr)
+        return 2
+
+    async def main() -> int:
+        trainer = Trainer(mcfg.predictor, mcfg.train, mcfg.kind, args.device)
+        if args.aot_cache:
+            from repro_torch.uvm.server.aot import enable_aot
+
+            enable_aot(trainer, args.aot_cache)
+        server = FaultStreamServer(cfg, trainer=trainer, device=args.device)
+        await server.start(path=args.socket, host=args.host if args.port is not None else None,
+                           port=args.port or 0)
+        where = " ".join(filter(None, [
+            f"unix={args.socket}" if args.socket else None,
+            f"tcp={args.host}:{server.tcp_port}" if args.port is not None else None,
+        ]))
+        mode = "serial" if args.serial else f"batched-{server.dispatcher.engine}"
+        print(f"# server listening {where} mode={mode} "
+              f"max_sessions={cfg.max_sessions}", flush=True)
+        stop = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        for signum in (signal.SIGTERM, signal.SIGINT):
+            try:
+                loop.add_signal_handler(signum, stop.set)
+            except NotImplementedError:  # pragma: no cover - non-unix loops
+                pass
+        stopper = asyncio.ensure_future(stop.wait())
+        forever = asyncio.ensure_future(server.serve_forever())
+        await asyncio.wait({stopper, forever}, return_when=asyncio.FIRST_COMPLETED)
+        forever.cancel()
+        await server.shutdown()
+        if server.injector is not None:
+            inj = server.injector
+            fired = {k: inj.counts[k] for k in sorted(inj.counts)}
+            print(f"# chaos schedule={json.dumps(inj.schedule.to_dict(), sort_keys=True)} "
+                  f"fired={json.dumps(fired)}", flush=True)
+        if args.aot_cache:
+            print(f"# aot cache={args.aot_cache} {json.dumps(trainer.aot_cache.stats())}",
+                  flush=True)
+        print(server.summary_line(), flush=True)
+        return 0
+
+    return asyncio.run(main())
+
+
+def cmd_loadgen(args) -> int:
+    """Deterministic multi-client replay of an exported fault log against
+    a running server; reports faults/sec + p50/p99 action latency."""
+    import asyncio
+
+    from repro_torch.uvm.server.loadgen import make_connector, run_loadgen
+
+    with (sys.stdin if args.input == "-" else open(args.input)) as fh:
+        lines = [l.rstrip("\n") for l in fh if l.strip() and not l.startswith("#")]
+    chaos_schedules = {}
+    if args.inject is not None:
+        from repro_torch.uvm.manager import ChaosSchedule, FaultInjector
+
+        chaos_schedules[args.chaos_client] = FaultInjector(ChaosSchedule.parse(args.inject))
+    stats = asyncio.run(run_loadgen(
+        make_connector(args.connect), lines, args.clients, rate=args.rate,
+        repeat=args.repeat, hello_prefix=args.hello_prefix,
+        chaos_schedules=chaos_schedules,
+        malformed_every=args.malformed_every, malformed_client=args.malformed_client,
+    ))
+    if args.json:
+        payload = {k: v for k, v in dataclasses.asdict(stats).items() if k != "per_client"}
+        Path(args.json).write_text(json.dumps(payload, indent=2, sort_keys=True) + "\n")
+    print(f"# loadgen clients={stats.clients} lines={stats.lines_sent} "
+          f"actions={stats.actions} errors={stats.errors} faults={stats.faults} "
+          f"wall_s={stats.wall_s:.3f} faults_per_s={stats.faults_per_s:.1f} "
+          f"p50_ms={stats.p50_ms:.2f} p99_ms={stats.p99_ms:.2f}")
+    return 0
+
+
 def _export_workload(args, session: Session) -> WorkloadSpec:
     if args.phases:
         return WorkloadSpec.drifting(
@@ -373,7 +482,8 @@ def cmd_export(args) -> int:
 
 
 SUBCOMMANDS = {"run": cmd_run, "sweep": cmd_sweep, "report": cmd_report,
-               "serve": cmd_serve, "export": cmd_export}
+               "serve": cmd_serve, "server": cmd_server, "loadgen": cmd_loadgen,
+               "export": cmd_export}
 
 
 def _add_stream_flags(p) -> None:
@@ -469,6 +579,73 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(p_srv)
     p_srv.add_argument("--strict", action="store_true",
                        help="exit non-zero if any malformed line was reported")
+
+    p_ssrv = sub.add_parser(
+        "server",
+        help="async fault-stream server: many concurrent serve sessions, one "
+             "cross-connection microbatched ('tenant'-aware, health-guarded) "
+             "trainer dispatch per tick; action records carry the same "
+             '"pattern"/"health"/"fallback" fields as serve',
+    )
+    _add_stream_flags(p_ssrv)
+    _add_device(p_ssrv)
+    p_ssrv.add_argument("--socket", default=None,
+                        help="unix socket path to listen on (and/or --port)")
+    p_ssrv.add_argument("--host", default="127.0.0.1", help="TCP bind host (with --port)")
+    p_ssrv.add_argument("--port", type=int, default=None,
+                        help="TCP port to listen on (0 = ephemeral, announced on startup)")
+    p_ssrv.add_argument("--max-sessions", type=int, default=4096,
+                        help="admission cap: concurrent connections beyond it are refused "
+                             "with a structured error record")
+    p_ssrv.add_argument("--idle-timeout", type=float, default=0.0,
+                        help="close (drain + snapshot) connections idle this many seconds "
+                             "(0 = never)")
+    p_ssrv.add_argument("--gather-spins", type=int, default=2,
+                        help="event-loop passes the dispatcher waits per tick so every "
+                             "connection with buffered input stages its half")
+    p_ssrv.add_argument("--serial", action="store_true",
+                        help="per-connection serial dispatch instead of cross-connection "
+                             "microbatching (the baseline; action streams are "
+                             "bit-identical either way)")
+    p_ssrv.add_argument("--engine", choices=("auto", "vmap", "fused"), default="auto",
+                        help="how a microbatched tick executes: 'vmap' makes one "
+                             "evaluate_many (a bucket of 4 or more transformer lanes "
+                             "stacked into one attention launch per block and layer) and "
+                             "one train_group_many over every lane, 'fused' sweeps the "
+                             "serial calls in one worker hop; 'auto' is vmap with more "
+                             "than one CUDA device, else fused")
+    p_ssrv.add_argument("--aot-cache", default=None,
+                        help="directory the CUDA kernel library is built into and loaded "
+                             "from: a build already there is reused, so a fresh process "
+                             "skips nvcc")
+
+    p_lg = sub.add_parser(
+        "loadgen",
+        help="deterministic multi-client load generator: replay an exported "
+             "fault log over N concurrent server connections at a target rate",
+    )
+    p_lg.add_argument("--connect", required=True,
+                      help="server address: 'unix:/path/to.sock' or 'host:port'")
+    p_lg.add_argument("--input", default="-",
+                      help="JSONL fault log every client replays ('-' = stdin)")
+    p_lg.add_argument("--clients", type=int, default=8, help="concurrent connections")
+    p_lg.add_argument("--rate", type=float, default=0.0,
+                      help="per-client lines/second pacing (0 = as fast as the "
+                           "closed loop allows)")
+    p_lg.add_argument("--repeat", type=int, default=1, help="replay passes per client")
+    p_lg.add_argument("--hello-prefix", default=None,
+                      help="send a hello line naming each session '<prefix><idx>' "
+                           "(binds server-side checkpoints/resume)")
+    p_lg.add_argument("--malformed-every", type=int, default=0,
+                      help="the --malformed-client injects a non-JSON line every N lines")
+    p_lg.add_argument("--malformed-client", type=int, default=None,
+                      help="index of the client that injects malformed lines")
+    p_lg.add_argument("--inject", default=None,
+                      help="seeded chaos schedule applied to the --chaos-client's OUTGOING "
+                           "stream (transform_lines: drops/dups/reorders/losses)")
+    p_lg.add_argument("--chaos-client", type=int, default=0,
+                      help="index of the client whose stream --inject transforms")
+    p_lg.add_argument("--json", default=None, help="also write the aggregate stats as JSON")
 
     p_exp = sub.add_parser(
         "export",

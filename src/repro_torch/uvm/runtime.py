@@ -417,8 +417,9 @@ def run_ours_many(
     lane (``kw`` are its keywords); each lane keeps its own manager and
     simulator state, so its result is its serial run's.  The reference's
     lockstep order (one ``evaluate_many`` and one ``train_group_many`` over
-    every lane per group) changes nothing while those run lane by lane; it
-    comes with stacking lanes into one launch per kernel (ROADMAP A5b).
+    every lane per group) waits for ``train_group_many`` to stack its lanes
+    as ``Trainer.evaluate_many`` now does (ROADMAP A5c): while fine-tunes
+    run lane by lane, the lockstep order was slower on the card.
 
     ``tables`` gives each lane its pretrained table; ``qos`` (one
     :class:`~repro_torch.uvm.api.specs.QosSpec`) opts every tenant-tagged

@@ -215,5 +215,7 @@ def test_cli_defaults_to_the_card(tmp_path):
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pcli.main(["run", "--benchmark", "ATAX", "--runs-dir", str(tmp_path)])
-    with pytest.raises(SystemExit):  # the async server is not ported yet
-        pcli.build_parser().parse_args(["server"])
+    sock = str(tmp_path / "s.sock")
+    assert pcli.build_parser().parse_args(["server", "--socket", sock]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pcli.main(["server", "--socket", sock])

@@ -815,3 +815,78 @@ def test_cli_sweep_on_the_card_equals_the_cpu(dev, tmp_path, capsys):
     again = capsys.readouterr().out.splitlines()
     assert again[:-1] == card[:-1] and " hits=8 computed=0 " in again[-1]
     assert kernels.LAUNCHES["evict_select"] == 0
+
+
+def _random_groups(cfg, ns, seed=0):
+    from repro_torch.core.features import FeatureSet
+
+    rng = np.random.default_rng(seed)
+    return [FeatureSet(page=rng.integers(0, cfg.page_vocab, (n, cfg.history)),
+                       delta=rng.integers(0, cfg.delta_vocab, (n, cfg.history)),
+                       pc=rng.integers(0, cfg.pc_vocab, (n, cfg.history)),
+                       tb=rng.integers(0, cfg.tb_vocab, (n, cfg.history)),
+                       label=rng.integers(0, cfg.delta_vocab, n), label_page=np.zeros(n, np.int64),
+                       t_index=np.arange(n)) for n in ns]
+
+
+def test_evaluate_many_stacks_a_bucket_into_one_launch_per_block_layer_and_row(dev):
+    """Four lanes of one bucket at ``CONFIG``: each lane's results are its
+    serial ``evaluate``'s bit for bit, and ``flash_attention`` launches
+    ``2 * num_layers`` times per schedule row for the bucket, against four
+    times that serially."""
+    from repro_torch.configs.predictor_paper import CONFIG
+    from repro_torch.core.incremental import TrainConfig, Trainer
+
+    trainer = Trainer(CONFIG, TrainConfig(batch_size=256), device=dev)
+    groups = _random_groups(CONFIG, [2048, 2000, 1900, 2048])
+    params = [trainer.new_params(s) for s in range(4)]
+    n_active = [700, 1024, 5, 300]
+    kernels.reset_launches()
+    serial = [trainer.evaluate(p, fs, n) for p, fs, n in zip(params, groups, n_active)]
+    n_serial = kernels.LAUNCHES["flash_attention"]
+    kernels.reset_launches()
+    stacked = trainer.evaluate_many(params, groups, n_active)
+    assert kernels.LAUNCHES["flash_attention"] == 2 * CONFIG.num_layers * 8 and n_serial == 4 * 2 * CONFIG.num_layers * 8
+    for (sc, sp), (gc, gp) in zip(serial, stacked):
+        np.testing.assert_array_equal(gc, sc)
+        np.testing.assert_array_equal(gp, sp)
+
+
+_AOT_CHILD = """
+import json, sys
+from repro_torch.configs.predictor_paper import SMOKE
+from repro_torch.core.incremental import TrainConfig, Trainer
+from repro_torch.uvm.server import enable_aot
+cache = enable_aot(Trainer(SMOKE, TrainConfig(), device="cuda"), sys.argv[1])
+print(json.dumps(cache.stats()))
+"""
+
+
+def test_aot_cache_misses_then_hits_in_a_fresh_directory(dev, tmp_path):
+    """``enable_aot`` in a fresh process builds the kernel library into an
+    empty directory (a miss); the next process loads it (a hit).  In a
+    process that loaded the library elsewhere, it raises."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.configs.predictor_paper import SMOKE
+    from repro_torch.core.incremental import TrainConfig, Trainer
+    from repro_torch.kernels._lib import LIBRARY
+    from repro_torch.uvm.server import enable_aot
+
+    src = Path(__file__).resolve().parent.parent / "src"
+    env = {**os.environ, "PYTHONPATH": str(src)}
+    stats = []
+    for _ in range(2):
+        out = subprocess.run([sys.executable, "-c", _AOT_CHILD, str(tmp_path / "aot")], capture_output=True, text=True,
+                             env=env, timeout=600)
+        assert out.returncode == 0, out.stderr[-3000:]
+        stats.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    assert stats == [{"hits": 0, "misses": 1, "fallbacks": 0}, {"hits": 1, "misses": 0, "fallbacks": 0}]
+    assert [p.name for p in (tmp_path / "aot").iterdir()] == [LIBRARY.path().name]
+    LIBRARY.cdll()
+    with pytest.raises(RuntimeError, match="already loaded"):
+        enable_aot(Trainer(SMOKE, TrainConfig(), device=dev), tmp_path / "elsewhere")

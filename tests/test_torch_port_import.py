@@ -269,3 +269,43 @@ def test_unported_options_raise():
     # QoS budgets partition a multi-tenant run only
     with pytest.raises(ValueError, match="tenant-tagged multi-tenant run"):
         R.run_ours(tagged, SMOKE, TrainConfig(epochs=0), qos=object(), multi_tenant=False, device="cpu")
+
+
+def test_server_imports_no_jax_and_loadgen_no_torch():
+    """``repro_torch.uvm.server`` (the async server, the AOT cache) and
+    ``cli server`` stand alone; the load generator is a client, and its
+    module loads without torch."""
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    child = _SERVE_CHILD.replace("import repro_torch.launch.serve", "import repro_torch.uvm.server.core, "
+                                 "repro_torch.uvm.server.aot, repro_torch.uvm.server.loadgen, repro_torch.uvm.cli, "
+                                 "repro_torch.launch.serve")
+    out = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    loadgen = SRC / "repro_torch" / "uvm" / "server" / "loadgen.py"
+    child = ("import importlib.util, json, sys\n"
+             f"spec = importlib.util.spec_from_file_location('loadgen', {str(loadgen)!r})\n"
+             "mod = sys.modules['loadgen'] = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod)\n"
+             "print(json.dumps([m for m in sys.modules if m == 'torch' or m.startswith(('torch.', 'jax', 'repro'))]"
+             " + [callable(mod.run_loadgen)]))")
+    out = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [True]
+
+
+def test_server_defaults_to_the_card(tmp_path):
+    from repro_torch.configs.predictor_paper import SMOKE
+    from repro_torch.uvm import cli
+    from repro_torch.uvm.manager import ManagerConfig
+    from repro_torch.uvm.server import FaultStreamServer, ServerConfig
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default device is usable here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FaultStreamServer(ServerConfig(manager=ManagerConfig(predictor=SMOKE)))
+    argv = ["server", "--socket", str(tmp_path / "s.sock")]
+    assert cli.build_parser().parse_args(argv).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv)
+    srv = FaultStreamServer(ServerConfig(manager=ManagerConfig(predictor=SMOKE)), device="cpu")
+    assert srv.trainer.device.type == "cpu" and srv.dispatcher.engine == "fused"
