@@ -253,7 +253,18 @@ Phases, in order; any failure exits non-zero:
               ``pretrain_paper.npz``'s slots: each lane's ``correct`` and
               ``pred`` its serial ``evaluate``'s, its logits by SHA-256, and
               ``flash_attention`` launched ``2 * num_layers * rows`` times
-              against four times that serially; (c) a malformed and a
+              against four times that serially; and
+              ``Trainer(CONFIG, TrainConfig()).train_group_many`` over the
+              same groups from the slots' params and AdamW moments, LUCIR
+              and E∪T flags on, the third lane cut to ``STACK_CUT`` windows
+              (18 steps against the others' 21, so it leaves the stack
+              early): each lane's params, moments, ``step`` and
+              ``n_updates`` its serial ``train_group``'s by SHA-256,
+              ``flash_attention`` launched 8 times and its backward 4 times
+              per stacked step (against the lane-steps' sum serially),
+              ``thrash_ce`` once per lane-step; the seconds stacked and
+              serial and ``thrash_ce``'s share of the stacked host
+              seconds; (c) a malformed and a
               transport-chaos client beside two clean ones, whose streams
               stay (a)'s, in a run where the event loop's thread runs no op
               on the card and a profile finds every launch and copy on one
@@ -3397,6 +3408,115 @@ async def _drive_named(sock: str, lines: list, *, n_actions=None) -> list:
     return out
 
 
+STACK_CUT = 1600  # (b)'s third lane in windows: 18 steps at TrainConfig() against the others' 21
+
+
+def stack_groups():
+    """``STACK_BENCH``'s first groups (2,048 accesses) at ``CONFIG``'s
+    vocabularies: one ``(FeatureSet, n_active)`` per lane."""
+    from repro_torch.configs.predictor_paper import CONFIG
+    from repro_torch.core.features import DeltaVocab, FeatureStream
+    from repro_torch.uvm import trace as T
+
+    out = []
+    for b in STACK_BENCH:
+        vocab = DeltaVocab(CONFIG.delta_vocab)
+        stream = FeatureStream(T.get_trace(b, 1.0), vocab, CONFIG.history, page_vocab=CONFIG.page_vocab,
+                               pc_vocab=CONFIG.pc_vocab, tb_vocab=CONFIG.tb_vocab)
+        out.append((stream.windows(0, 2048), max(vocab.n_classes, 2)))
+    return out
+
+
+def entry_sha(entry) -> str:
+    """The SHA-256 (first 16 hex digits) of an entry's params and AdamW
+    moments, in sorted key order, and its step and update counts."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for tree in (entry.params, *(() if entry.opt_state is None else (entry.opt_state.m, entry.opt_state.v))):
+        for k in sorted(tree):
+            h.update(tree[k].detach().contiguous().cpu().numpy().tobytes())
+    h.update(f"{entry.step} {entry.n_updates}".encode())
+    return h.hexdigest()[:16]
+
+
+def stacked_fine_tune(dev, table) -> dict:
+    """Phase 14 (b)'s fine-tune half: ``Trainer(CONFIG, TrainConfig())``
+    over ``STACK_BENCH``'s first groups from ``table``'s slots, params and
+    moments, LUCIR (each slot its own previous model) and E∪T flags on, the
+    third lane cut to ``STACK_CUT`` windows.  The stacked bucket against
+    the lanes' serial ``train_group``: each lane's SHA-256, the launches
+    per stacked step, the host seconds of each (after a warm stacked run),
+    and the share of the stacked run's host seconds spent inside
+    ``thrash_ce``'s forward and backward wrappers."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs.predictor_paper import CONFIG
+    from repro_torch.core.incremental import TrainConfig, Trainer
+    from repro_torch.core.model_table import Entry, clone_tree
+    from repro_torch.kernels import thrash_ce as TCE
+
+    trainer = Trainer(CONFIG, TrainConfig(), device=dev)
+    groups = stack_groups()
+    fs_list = [fs.slice(0, STACK_CUT) if i == 2 else fs for i, (fs, _) in enumerate(groups)]
+    na = [n for _, n in groups]
+    rng = np.random.default_rng(0)
+    flags = [rng.random(len(fs)) < 0.3 for fs in fs_list]
+    slots = sorted(table.slots)
+    start = [table.slots[slots[i % len(slots)]] for i in range(len(fs_list))]
+    steps = [len(trainer._train_schedule(len(fs), np.random.default_rng(0))) for fs in fs_list]
+    check(steps == [21, 21, 18, 21], f"(b) the fine-tune lanes' steps: {steps}")
+
+    def run(stacked: bool):
+        es = [Entry(params=clone_tree(e.params), prev_params=clone_tree(e.params), opt_state=clone_tree(e.opt_state),
+                    step=e.step, n_updates=e.n_updates) for e in start]
+        _sync(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        if stacked:
+            trainer.train_group_many(es, fs_list, na, in_et_list=flags, use_lucir=True)
+        else:
+            for e, fs, n, f in zip(es, fs_list, na, flags):
+                trainer.train_group(e, fs, n, in_et=f, use_lucir=True)
+        _sync(dev)
+        return [entry_sha(e) for e in es], time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+    run(True)  # shapes and allocator warm
+    serial, serial_s, ls = run(False)
+    stacked, stacked_s, lm = run(True)
+    check(stacked == serial, f"(b) a stacked fine-tune lane differs from its serial train_group: {stacked} {serial}")
+    per = 2 * CONFIG.num_layers if dev.type == "cuda" else 0
+    want_m = {"flash_attention": 2 * per * max(steps), "flash_attention_bwd": per * max(steps),
+              "thrash_ce_fwd": sum(steps) * bool(per), "thrash_ce_bwd": sum(steps) * bool(per)}
+    want_s = {"flash_attention": 2 * per * sum(steps), "flash_attention_bwd": per * sum(steps),
+              "thrash_ce_fwd": want_m["thrash_ce_fwd"], "thrash_ce_bwd": want_m["thrash_ce_bwd"]}
+    got_m, got_s = ({k: d[k] for k in want_m} for d in (lm, ls))
+    check(got_m == want_m and got_s == want_s, f"(b) fine-tune launches stacked {got_m} (want {want_m}), serial "
+          f"{got_s} (want {want_s})")
+    inside = [0.0]
+
+    def clocked(fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                inside[0] += time.perf_counter() - t
+        return call
+
+    fwd, bwd = TCE._forward, TCE._backward
+    TCE._forward, TCE._backward = clocked(fwd), clocked(bwd)
+    try:
+        clocked_sha, clocked_s, _ = run(True)
+    finally:
+        TCE._forward, TCE._backward = fwd, bwd
+    check(clocked_sha == serial, "(b) the clocked stacked fine-tune differs")
+    return {"lanes": [len(fs) for fs in fs_list], "steps": steps, "serial_s": serial_s, "stacked_s": stacked_s,
+            "launches": {"serial": got_s, "stacked": got_m}, "sha256": stacked,
+            "thrash_ce_host_share": inside[0] / clocked_s, "clocked_s": clocked_s}
+
+
 def server_path(dev, aot_miss: bool = False) -> dict:
     """Phase 14: ``FaultStreamServer``, ``run_loadgen`` and ``cli server``
     on the card, against ``experiments/torch/cli_quick_ref.json``'s serve
@@ -3454,10 +3574,8 @@ def _server_checks(dev, tmp: Path, aot_miss: bool, ref: dict, on: list, aot: lis
     from repro_torch import kernels
     from repro_torch.configs.predictor_paper import CONFIG
     from repro_torch.core import predictor as P
-    from repro_torch.core.features import DeltaVocab, FeatureStream
     from repro_torch.core.incremental import TrainConfig, Trainer
     from repro_torch.uvm import cli
-    from repro_torch.uvm import trace as T
     from repro_torch.uvm.manager import ChaosSchedule, FaultInjector, SnapshotStore
     from repro_torch.uvm.runtime import load_pretrained
     from repro_torch.uvm.server import FaultStreamServer, ServerConfig, make_connector, run_loadgen
@@ -3582,14 +3700,8 @@ def _server_checks(dev, tmp: Path, aot_miss: bool, ref: dict, on: list, aot: lis
     # (b) a stacked bucket at the paper width
     table = load_pretrained(WEIGHTS, CONFIG, dev)
     slots = sorted(table.slots)
-    params, fs_list, na = [], [], []
-    for i, b in enumerate(STACK_BENCH):
-        vocab = DeltaVocab(CONFIG.delta_vocab)
-        stream = FeatureStream(T.get_trace(b, 1.0), vocab, CONFIG.history, page_vocab=CONFIG.page_vocab,
-                               pc_vocab=CONFIG.pc_vocab, tb_vocab=CONFIG.tb_vocab)
-        fs_list.append(stream.windows(0, 2048))
-        na.append(max(vocab.n_classes, 2))
-        params.append(table.slots[slots[i % len(slots)]].params)
+    fs_list, na = map(list, zip(*stack_groups()))
+    params = [table.slots[slots[i % len(slots)]].params for i in range(len(fs_list))]
     trainer = Trainer(CONFIG, TrainConfig(2048, 0, 256), device=dev)
 
     def timed_launches(fn):
@@ -3629,6 +3741,10 @@ def _server_checks(dev, tmp: Path, aot_miss: bool, ref: dict, on: list, aot: lis
         "lanes": [len(fs) for fs in fs_list], "rows": n_rows, "serial_s": serial_s, "stacked_s": many_s,
         "flash_attention": {"serial": serial_fa, "stacked": many_fa}, "logits_sha256": digests["stacked"],
         "top1": [float(c.mean()) for c, _ in many]}))
+    tuned = stacked_fine_tune(dev, table)
+    print(f"      and train_group_many at CONFIG and TrainConfig(), LUCIR and E∪T flags on, the third lane cut to "
+          f"{STACK_CUT} windows: every lane's params, moments and counts its serial train_group's by SHA-256: "
+          + json.dumps(tuned))
     # (c) isolation: a malformed client and a transport-chaos client beside two clean ones
     [st] = run("isolation", "fused", [("drift", 4, {"malformed_every": 3, "malformed_client": 2,
                                                     "chaos_schedules": {3: FaultInjector(ChaosSchedule.parse(
@@ -3867,10 +3983,12 @@ def main() -> int:
               f"UVMSmart, frozen ours; fine-tuned ours on {len(TABLES_TUNED)}), on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["table6"], tables_ctx, tables_tuned = tables_path(dev)
+        t9 = time.perf_counter()
         print(f"[9/14] concurrent: Tables VII and VIII's cells, four pairs at the paper preset, x1.25 (frozen mux and "
               f"merged on all four; fine-tuned and Table VII on {', '.join(CONCURRENT_TUNED)}), on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["concurrent"] = concurrent_path(dev)
+        print(f"      phase 9 took {time.perf_counter() - t9:.1f} s")
         t10 = time.perf_counter()
         phase14 = Phase14Process()
         print(f"[10/14] figures: Figs. 3, 12, 13 and 14's cells on {', '.join(FIG3_BENCH)} and Figs. 4 and 11's "
@@ -3900,8 +4018,9 @@ def main() -> int:
               + json.dumps({k: c for k, c in by_path["experiment_api"].items() if c}))
         t14 = time.perf_counter()
         print(f"[14/14] server: FaultStreamServer in every dispatch mode with run_loadgen's clients on the drift and "
-              f"churn logs, a stacked evaluate_many at CONFIG, isolation, kill -9 and --resume of cli server with its "
-              f"AOT cache, and load, on the card, in a process started with phase 10 (at {t14 - start:.0f} s)")
+              f"churn logs, a stacked evaluate_many and train_group_many at CONFIG, isolation, kill -9 and --resume of "
+              f"cli server with its AOT cache, and load, on the card, in a process started with phase 10 (at "
+              f"{t14 - start:.0f} s)")
         by_path["server"], seconds = phase14.result()
         print(f"      phase 14 took {seconds:.1f} s beside phases 10-13, and {time.perf_counter() - t14:.1f} s more "
               "here; launches " + json.dumps({k: c for k, c in by_path["server"].items() if c}))

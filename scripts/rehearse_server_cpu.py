@@ -1,12 +1,13 @@
 """Rehearse phase 14 of ``chip_smoke.py`` (the async fault-stream server:
 ``FaultStreamServer`` in every dispatch mode with ``run_loadgen``'s clients
 on the drift and churn logs of ``experiments/torch/cli_quick_ref.json``, a
-stacked ``evaluate_many`` at ``CONFIG``, isolation, kill -9 and
-``--resume`` of ``cli server --device cpu``, and load) on a CPU, where every
-kernel wrapper computes its plain PyTorch version: every check of the
-phase but the launch counts, the AOT cache and the profiled thread check
-(on the CPU no wrapper launches a kernel), with each piece's ticks, lanes
-and seconds, from which the phase's time on the card is planned.
+stacked ``evaluate_many`` and ``train_group_many`` at ``CONFIG``,
+isolation, kill -9 and ``--resume`` of ``cli server --device cpu``, and
+load) on a CPU, where every kernel wrapper computes its plain PyTorch
+version: every check of the phase but the launch counts, the AOT cache and
+the profiled thread check (on the CPU no wrapper launches a kernel), with
+each piece's ticks, lanes and seconds, from which the phase's time on the
+card is planned.
 
     PYTHONPATH=src python scripts/rehearse_server_cpu.py [--threads 6] [--gather-spins 2]
 """

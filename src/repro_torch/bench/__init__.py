@@ -1,1 +1,1 @@
-"""The paper's tables on the port (:mod:`.tables`)."""
+"""The paper's tables (:mod:`.tables`) and figures (:mod:`.figures`) on the port."""

@@ -15,9 +15,9 @@ _MODULES = {
 }
 
 # The JAX package's other architectures (``repro.configs._MODULES``) and the
-# ROADMAP item that ports each: the hybrid family (zamba2) comes next after
-# training, the others with the LM zoo.
-NOT_PORTED = {"zamba2-7b": "A3", **dict.fromkeys(("whisper-medium", "olmoe-1b-7b", "qwen2-moe-a2.7b", "qwen3-0.6b",
+# ROADMAP item that ports each: the hybrid family (zamba2) with the LM zoo's
+# item A6(b), the others with the rest of A6.
+NOT_PORTED = {"zamba2-7b": "A6(b)", **dict.fromkeys(("whisper-medium", "olmoe-1b-7b", "qwen2-moe-a2.7b", "qwen3-0.6b",
                                                    "granite-3-8b", "qwen1.5-4b", "internvl2-26b"), "A6")}
 
 

@@ -20,7 +20,11 @@ train_loss` (CE and the thrashing term through the ``thrash_ce`` kernel,
 LUCIR beside it), a backward (through the attention backward kernel on the
 card) and a functional AdamW update.  The JAX package scans a schedule
 padded to a power-of-two bucket of steps whose padding rows are no-ops; the
-port loops over the real rows only.
+port loops over the real rows only.  Many lanes (a mux's tenants, a
+server's sessions, many benchmarks) go through :meth:`Trainer.evaluate_many`
+and :meth:`Trainer.train_group_many`, which stack a bucket of transformer
+lanes so that the attention launches once per block and layer for all of
+them, each lane's results bit for bit its own call's.
 """
 from __future__ import annotations
 
@@ -142,9 +146,7 @@ class Trainer:
             lanes = [j for j, p in enumerate(pidx) if r < len(p)]
             params = [params_list[j] for j in lanes]
             batches = [{k: v[pidx[j][r]] for k, v in staged[j][0].items()} for j in lanes]
-            out = (predictor.forward_many(params, batches, self.pcfg) if len(lanes) > 1
-                   else [self.forward(params[0], batches[0])])
-            for j, (logits, _) in zip(lanes, out):
+            for j, (logits, _) in zip(lanes, self._forward_many(params, batches)):
                 p = predictor.mask_inactive(logits, n_active_list[j]).argmax(dim=-1)
                 pred[j].append(p)
                 correct[j].append(p == staged[j][1][pidx[j][r]])
@@ -157,13 +159,27 @@ class Trainer:
     def train_group_many(self, entries: list, fs_list: list, n_active_list: list, *, in_et_list=None,
                          use_lucir=False) -> list:
         """:meth:`train_group` across lanes (one entry and group per lane),
-        entries updated in place.  An empty lane is skipped (its optimizer
-        state stays unset, its ``n_updates`` unbumped); the others get their
-        optimizer state first, then train one by one in the JAX package's
-        bucket order (sample bucket, step bucket, LUCIR eligibility, thrash
-        flags present).  Stacking a bucket into one launch per kernel, as
-        :meth:`evaluate_many` does, needs a ``thrash_ce`` launch that takes a
-        ``mu`` and an ``n_active`` per lane (ROADMAP A5c)."""
+        entries updated in place; an empty lane is skipped (its optimizer
+        state stays unset, its ``n_updates`` unbumped).
+
+        The lanes are bucketed as the JAX package buckets them, by
+        ``(pow2_bucket(n, 1024), pow2_bucket(n_steps, 16), LUCIR
+        eligibility, thrash flags present)``, and the buckets run in the
+        order of their first lane.  A bucket of fewer than
+        ``MIN_VMAP_LANES`` lanes, or of a kind other than ``transformer``,
+        runs through :meth:`train_group` lane by lane.  A larger
+        transformer bucket is stacked (:meth:`_train_lanes`): step ``r``
+        runs the lanes whose own schedule has a row ``r`` through one
+        forward and one backward, so the attention and its backward launch
+        once per block and layer for all of them, while each lane keeps its
+        own loss (one ``thrash_ce`` launch, its own ``mu`` and
+        ``n_active``), gradient clipping and AdamW step at its own step
+        number.  Every lane's params, moments, ``step`` and ``n_updates``
+        are bit for bit its :meth:`train_group`'s.  A stacked bucket writes
+        its entries only after its last step, so a bucket that raises
+        leaves them as they were (the JAX package's vmapped dispatch is as
+        atomic); one ``Entry`` twice in a stacked bucket raises
+        ``ValueError`` before any lane trains."""
         tc = self.tcfg
         in_et_list = in_et_list if in_et_list is not None else [None] * len(entries)
         buckets: dict = {}
@@ -171,14 +187,21 @@ class Trainer:
             n = len(fs)
             if n == 0:
                 continue
-            if entry.opt_state is None:
-                entry.opt_state = self.opt.init(entry.params)
             use_l = use_lucir and entry.prev_params is not None
-            n_steps = len(self._train_schedule(n, np.random.default_rng(tc.seed)))
-            key = (pow2_bucket(n, 1024), pow2_bucket(n_steps, 16), use_l, in_et_list[i] is not None)
-            buckets.setdefault(key, []).append(i)
+            rows = self._train_schedule(n, np.random.default_rng(tc.seed))
+            key = (pow2_bucket(n, 1024), pow2_bucket(len(rows), 16), use_l, in_et_list[i] is not None)
+            buckets.setdefault(key, []).append((i, rows))
+        stack = lambda lanes: len(lanes) >= self.MIN_VMAP_LANES and self.kind == "transformer"
         for lanes in buckets.values():
-            for i in lanes:
+            if stack(lanes) and len({id(entries[i]) for i, _ in lanes}) < len(lanes):
+                raise ValueError("train_group_many: one Entry is in a stacked bucket twice; serial train_group "
+                                 "calls would train it twice and the JAX package's vmap would keep one update")
+        for lanes in buckets.values():
+            if stack(lanes):
+                self._train_lanes(*([a[i] for i, _ in lanes] for a in (entries, fs_list, n_active_list, in_et_list)),
+                                  [rows for _, rows in lanes], use_lucir)
+                continue
+            for i, _ in lanes:
                 self.train_group(entries[i], fs_list[i], n_active_list[i], in_et=in_et_list[i], use_lucir=use_lucir)
         return entries
 
@@ -206,20 +229,84 @@ class Trainer:
                 rows.append(np.resize(order, tc.batch_size))
         return np.stack(rows).astype(np.int64) if rows else np.zeros((0, tc.batch_size), np.int64)
 
-    def _train_step(self, params, opt_state, batch, labels, n_active: int, step: int, f_old, in_et, n_et: int):
-        """One AdamW step on one batch; returns (params, opt_state, metrics)
-        with the loss (``"total"``) and the gradient's global norm before
+    def _forward_many(self, params_list: list, batches: list) -> list:
+        """One ``(logits, features)`` per lane: several lanes (transformer
+        only) through one :func:`~repro_torch.core.predictor.forward_many`,
+        one lane through the kind's own forward."""
+        if len(params_list) > 1:
+            return predictor.forward_many(params_list, batches, self.pcfg)
+        return [self.forward(params_list[0], batches[0])]
+
+    def _train_step_many(self, lanes: list) -> list:
+        """One AdamW step for each lane ``(params, opt_state, batch, labels,
+        n_active, step, f_old, in_et, n_et)``: one forward and one backward
+        over all of them (the sum of the lane losses, so each lane's
+        upstream gradient is exactly 1), then each lane's own clipping and
+        update.  Returns ``(params, opt_state, metrics)`` per lane, metrics
+        the loss (``"total"``) and the gradient's global norm before
         clipping (``"grad_norm"``), both on the device."""
-        keys = list(params)
+        keys = [list(ln[0]) for ln in lanes]
         with torch.enable_grad():
-            leaves = [params[k].detach().requires_grad_(True) for k in keys]
-            logits, f = self.forward(dict(zip(keys, leaves)), batch)
-            loss = losses.train_loss(logits, f, labels, n_active=n_active, f_old=f_old, in_et=in_et, n_et=n_et,
-                                     lam=self.pcfg.lucir_lambda, mu=self.pcfg.thrash_mu)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = {k: torch.zeros_like(params[k]) if g is None else g for k, g in zip(keys, grads)}
-        updates, opt_state, gnorm = self.opt.update(grads, opt_state, params, step)
-        return adamw.apply_updates(params, updates), opt_state, {"total": loss.detach(), "grad_norm": gnorm}
+            leaves = [[ln[0][k].detach().requires_grad_(True) for k in ks] for ln, ks in zip(lanes, keys)]
+            out = self._forward_many([dict(zip(ks, lv)) for ks, lv in zip(keys, leaves)], [ln[2] for ln in lanes])
+            loss = [losses.train_loss(logits, f, labels, n_active=n_active, f_old=f_old, in_et=in_et, n_et=n_et,
+                                      lam=self.pcfg.lucir_lambda, mu=self.pcfg.thrash_mu)
+                    for (logits, f), (_, _, _, labels, n_active, _, f_old, in_et, n_et) in zip(out, lanes)]
+            # the sum, not grad_outputs: a tensor in grad_outputs makes autograd import torch.fx's
+            # symbolic shapes (and sympy), which costs a second once and slows every later step
+            flat = torch.autograd.grad(sum(loss[1:], loss[0]), [x for lv in leaves for x in lv], allow_unused=True)
+        res, lo = [], 0
+        for (params, opt_state, _, _, _, step, *_), ks, lss in zip(lanes, keys, loss):
+            grads = {k: torch.zeros_like(params[k]) if g is None else g for k, g in zip(ks, flat[lo:lo + len(ks)])}
+            lo += len(ks)
+            updates, opt_state, gnorm = self.opt.update(grads, opt_state, params, step)
+            res.append((adamw.apply_updates(params, updates), opt_state, {"total": lss.detach(), "grad_norm": gnorm}))
+        return res
+
+    def _train_step(self, params, opt_state, batch, labels, n_active: int, step: int, f_old, in_et, n_et: int):
+        """:meth:`_train_step_many` of one lane: ``(params, opt_state,
+        metrics)``."""
+        return self._train_step_many([(params, opt_state, batch, labels, n_active, step, f_old, in_et, n_et)])[0]
+
+    def _train_lanes(self, entries: list, fs_list: list, n_active_list: list, in_et_list: list, rows_list: list,
+                     use_lucir: bool) -> None:
+        """Fine-tune non-empty lanes on their schedules ``rows_list``
+        together (several lanes: transformer only).  Step ``r`` takes the
+        lanes that have a row ``r``: with LUCIR their previous models'
+        features under one no-grad forward, then one
+        :meth:`_train_step_many` (one lane: :meth:`_train_step`).  The
+        entries get their params, moments, ``step`` and ``n_updates`` after
+        the last step."""
+        params = [e.params for e in entries]
+        opt = [self.opt.init(e.params) if e.opt_state is None else e.opt_state for e in entries]
+        n_steps = max(len(rows) for rows in rows_list)
+        if n_steps:  # a frozen schedule (no rows) stages nothing
+            staged = [self._stage(fs) for fs in fs_list]
+            idx = [torch.tensor(rows, device=self.device) for rows in rows_list]
+            et_np = [None if e is None else np.asarray(e, bool) for e in in_et_list]
+            et = [None if e is None else torch.tensor(e.astype(np.int32), device=self.device) for e in et_np]
+        use_l = use_lucir and entries[0].prev_params is not None  # the same for every lane of a bucket
+        for r in range(n_steps):
+            act = [j for j, rows in enumerate(rows_list) if r < len(rows)]
+            bidx = [idx[j][r] for j in act]
+            batches = [{k: v[b] for k, v in staged[j][0].items()} for j, b in zip(act, bidx)]
+            f_old = [None] * len(act)
+            if use_l:
+                with torch.no_grad():
+                    f_old = [f for _, f in self._forward_many([entries[j].prev_params for j in act], batches)]
+            lanes = []
+            for a, j in enumerate(act):
+                bet, n_et = ((None, 0) if et[j] is None
+                             else (et[j][bidx[a]], int(np.count_nonzero(et_np[j][rows_list[j][r]]))))
+                lanes.append((params[j], opt[j], batches[a], staged[j][1][bidx[a]], n_active_list[j],
+                              entries[j].step + r, f_old[a], bet, n_et))
+            steps = self._train_step_many(lanes) if len(lanes) > 1 else [self._train_step(*lanes[0])]
+            for j, (p, o, _) in zip(act, steps):
+                params[j], opt[j] = p, o
+        for e, p, o, rows in zip(entries, params, opt, rows_list):
+            e.params, e.opt_state = p, o
+            e.step += len(rows)
+            e.n_updates += 1
 
     def train_group(self, entry: Entry, fs: FeatureSet, n_active: int, *, in_et=None, use_lucir=False, rng=None):
         """Fine-tune on one group (``TrainConfig.epochs`` epochs of full
@@ -234,27 +321,7 @@ class Trainer:
         if n == 0:
             return entry
         rng = np.random.default_rng(tc.seed if rng is None else rng)
-        use_l = use_lucir and entry.prev_params is not None
-        rows = self._train_schedule(n, rng)
-        if len(rows):
-            feats, labels = self._stage(fs)
-            idx = torch.tensor(rows, device=self.device)
-            et_np = None if in_et is None else np.asarray(in_et, bool)
-            et = None if et_np is None else torch.tensor(et_np.astype(np.int32), device=self.device)
-            params, opt_state = entry.params, entry.opt_state
-            for i, row in enumerate(rows):
-                bidx = idx[i]
-                batch = {k: v[bidx] for k, v in feats.items()}
-                f_old = None
-                if use_l:
-                    with torch.no_grad():
-                        f_old = self.forward(entry.prev_params, batch)[1]
-                bet, n_et = (None, 0) if et is None else (et[bidx], int(np.count_nonzero(et_np[row])))
-                params, opt_state, _ = self._train_step(params, opt_state, batch, labels[bidx], n_active,
-                                                        entry.step + i, f_old, bet, n_et)
-            entry.params, entry.opt_state = params, opt_state
-        entry.step += len(rows)
-        entry.n_updates += 1
+        self._train_lanes([entry], [fs], [n_active], [in_et], [self._train_schedule(n, rng)], use_lucir)
         return entry
 
 

@@ -23,7 +23,7 @@ from repro_torch.models import params as prm
 FAMILIES = {"dense": dense, "ssm": mamba2}
 
 # The ROADMAP item that ports each family not ported yet.
-_UNPORTED = {"moe": "A6", "hybrid": "A3", "encdec": "A6", "vlm": "A6"}
+_UNPORTED = {"moe": "A6", "hybrid": "A6(b)", "encdec": "A6", "vlm": "A6"}
 
 
 def module(cfg: ModelConfig):

@@ -396,8 +396,8 @@ def cmd_server(args) -> int:
             f"tcp={args.host}:{server.tcp_port}" if args.port is not None else None,
         ]))
         mode = "serial" if args.serial else f"batched-{server.dispatcher.engine}"
-        print(f"# server listening {where} mode={mode} "
-              f"max_sessions={cfg.max_sessions}", flush=True)
+        # the handlers are in place before the banner, so a SIGTERM sent as
+        # soon as it is read drains the server instead of killing it
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()
         for signum in (signal.SIGTERM, signal.SIGINT):
@@ -405,6 +405,8 @@ def cmd_server(args) -> int:
                 loop.add_signal_handler(signum, stop.set)
             except NotImplementedError:  # pragma: no cover - non-unix loops
                 pass
+        print(f"# server listening {where} mode={mode} "
+              f"max_sessions={cfg.max_sessions}", flush=True)
         stopper = asyncio.ensure_future(stop.wait())
         forever = asyncio.ensure_future(server.serve_forever())
         await asyncio.wait({stopper, forever}, return_when=asyncio.FIRST_COMPLETED)

@@ -416,10 +416,13 @@ def run_ours_many(
     """Run the learned system over many traces, one :func:`run_ours` per
     lane (``kw`` are its keywords); each lane keeps its own manager and
     simulator state, so its result is its serial run's.  The reference's
-    lockstep order (one ``evaluate_many`` and one ``train_group_many`` over
-    every lane per group) waits for ``train_group_many`` to stack its lanes
-    as ``Trainer.evaluate_many`` now does (ROADMAP A5c): while fine-tunes
-    run lane by lane, the lockstep order was slower on the card.
+    lockstep order (each group of every lane through one ``evaluate_many``
+    and one ``train_group_many``, both stacking a bucket of four or more
+    lanes) gave every lane's serial result on an H100 too, and was faster
+    on four fine-tuned lanes (medians 18.8 s against 24.2 s), but on four
+    frozen lanes its times and this loop's overlapped (4.06-4.63 s against
+    4.30-4.41 s; PERF.md §6): it is kept out until it is shown no slower
+    there.
 
     ``tables`` gives each lane its pretrained table; ``qos`` (one
     :class:`~repro_torch.uvm.api.specs.QosSpec`) opts every tenant-tagged

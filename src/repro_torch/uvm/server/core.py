@@ -15,9 +15,9 @@ connections): each tick it drains every session's staged halves and
 executes them in ONE worker hop on a shared trainer, off the event loop so
 new lines keep streaming in while the model dispatch runs.  How the hop
 executes follows :func:`_resolve_engine`: one ``Trainer.evaluate_many``
-over every lane (a bucket of four or more transformer lanes is stacked
-into one attention launch per block and layer) and one
-``train_group_many``, or a fused sweep of the serial calls.
+over every lane and one ``train_group_many`` (each stacks a bucket of
+four or more transformer lanes: one attention launch per block and layer,
+and per fine-tune step), or a fused sweep of the serial calls.
 ``microbatch=False`` drops the gathering entirely — every session-tick
 becomes its own executor task and event-loop round-trip, the
 per-connection baseline.  All modes emit bit-identical per-connection

@@ -3,9 +3,14 @@
 Port of the single-lane parts of ``repro.uvm.simulator``: per-block state
 arrays (residency, LRU clocks, chain intervals, Belady next-use, learned
 prediction frequency) live as tensors on the simulator's device, and the
-event-compressed access stream is walked by a Python loop with no host
-sync inside it.  Migration and eviction are at 64KB basic-block
-granularity; "pages thrashed" are blocks x 16 pages.
+event-compressed access stream is walked by a Python loop.  On a CUDA
+device two of its stores synchronise with the host once per event each:
+``cand[protect] = False`` (line 339, :func:`_evict_fit`) and
+``state.next_use[b] = nx`` (line 513, :func:`_scan_events`) write a Python
+number into one element of a device tensor, which torch does as a copy
+from pageable host memory.
+Migration and eviction are at 64KB basic-block granularity; "pages
+thrashed" are blocks x 16 pages.
 
 Eviction policies (Section II-C / IV-D): ``lru``, ``belady`` (MIN oracle
 from the precomputed next-use stream), ``hpe`` (page-set chain + LRU) and

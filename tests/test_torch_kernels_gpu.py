@@ -852,6 +852,55 @@ def test_evaluate_many_stacks_a_bucket_into_one_launch_per_block_layer_and_row(d
         np.testing.assert_array_equal(gp, sp)
 
 
+def _entry_sha(entry) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for tree in (entry.params, entry.opt_state.m, entry.opt_state.v):
+        for k in sorted(tree):
+            h.update(tree[k].detach().contiguous().cpu().numpy().tobytes())
+    h.update(f"{entry.step} {entry.n_updates}".encode())
+    return h.hexdigest()
+
+
+def test_train_group_many_stacks_a_bucket_bit_for_bit(dev):
+    """Four lanes of one bucket at ``CONFIG`` and ``TrainConfig()`` (24, 21,
+    18 and 24 steps), LUCIR and E∪T flags on: each lane's params, moments,
+    ``step`` and ``n_updates`` have its serial ``train_group``'s SHA-256;
+    the attention launches 8 times and its backward 4 times per stacked
+    step, ``thrash_ce`` once per lane-step either way."""
+    from repro_torch.configs.predictor_paper import CONFIG
+    from repro_torch.core.incremental import TrainConfig, Trainer
+    from repro_torch.core.model_table import Entry, clone_tree
+
+    trainer = Trainer(CONFIG, TrainConfig(), device=dev)
+    groups = _random_groups(CONFIG, [2048, 2000, 1600, 2048])
+    n_active = [700, 1024, 5, 300]
+    rng = np.random.default_rng(2)
+    flags = [rng.random(len(fs)) < 0.3 for fs in groups]
+    start = [(trainer.new_params(s), trainer.new_params(s + 4)) for s in range(4)]
+
+    def entries():
+        return [Entry(params=clone_tree(p), prev_params=clone_tree(q), step=7) for p, q in start]
+
+    runs = {}
+    for name in ("serial", "stacked"):
+        es = entries()
+        kernels.reset_launches()
+        if name == "serial":
+            for e, fs, n, f in zip(es, groups, n_active, flags):
+                trainer.train_group(e, fs, n, in_et=f, use_lucir=True)
+        else:
+            trainer.train_group_many(es, groups, n_active, in_et_list=flags, use_lucir=True)
+        runs[name] = ([_entry_sha(e) for e in es], dict(kernels.LAUNCHES), [e.step for e in es])
+    (serial, ls, steps), (stacked, lm, _) = runs["serial"], runs["stacked"]
+    assert stacked == serial and steps == [7 + 24, 7 + 21, 7 + 18, 7 + 24]
+    per = 2 * CONFIG.num_layers
+    assert (lm["flash_attention"], lm["flash_attention_bwd"]) == (24 * 2 * per, 24 * per)
+    assert (ls["flash_attention"], ls["flash_attention_bwd"]) == (87 * 2 * per, 87 * per)
+    assert lm["thrash_ce_fwd"] == lm["thrash_ce_bwd"] == ls["thrash_ce_fwd"] == ls["thrash_ce_bwd"] == 87
+
+
 _AOT_CHILD = """
 import json, sys
 from repro_torch.configs.predictor_paper import SMOKE

@@ -556,6 +556,18 @@ def test_server_kill9_resume_bit_identical_tail(tmp_path, capsys):
     assert "# server sessions=1 refused=0 idle_closed=0 resumed=1 " in tail_out
 
 
+def test_server_drains_a_sigterm_sent_as_soon_as_it_listens(tmp_path):
+    """The signal handlers are in place before the banner: a SIGTERM sent
+    the moment the banner is read drains the server, which prints its
+    summary and exits 0 (before, the default action could kill it with no
+    output)."""
+    for i in range(3):
+        proc = _spawn_server(str(tmp_path / f"t{i}.sock"), [])
+        proc.send_signal(signal.SIGTERM)
+        out = proc.communicate(timeout=120)[0]
+        assert proc.returncode == 0 and out.splitlines()[-1].startswith("# server sessions=0 "), (proc.returncode, out)
+
+
 def test_enable_aot_refuses_a_cpu_trainer(tmp_path):
     trainer = PI.Trainer(PC.SMOKE, PI.TrainConfig(), device="cpu")
     with pytest.raises(ValueError, match="launches no kernel"):
