@@ -7,6 +7,7 @@
     python3 chip_smoke.py --time-training LABEL
     python3 chip_smoke.py --experiment-api
     python3 chip_smoke.py --server
+    python3 chip_smoke.py --bench-run
 
 Phases, in order; any failure exits non-zero:
 
@@ -280,6 +281,23 @@ Phases, in order; any failure exits non-zero:
               phase 13, so its host numbers are taken beside phases 10-13.
               ``--server`` runs it alone, with a fresh ``cli server`` that
               builds into an empty AOT cache (one miss).
+15. bench run — the benchmark driver (``python -m repro_torch.bench.run
+              --scale quick --only table1 table7``) in process, against
+              ``experiments/torch/tables_quick_ref.json``: (a) Table I's
+              rows equal; (b) Table VII's ``online_single`` and ``ours``
+              (from ``pretrain_quick_s321.npz``) protocol runs equal where
+              ``BENCH_RUN_EQUAL`` says, else within phase 7 (b)'s limits;
+              (c) ``experiments/bench_torch/*.csv`` the printed rows; (d)
+              ``evict_select`` launched in Table I, the float32 attention,
+              its backward and both ``thrash_ce`` kernels in Table VII,
+              ``freq_update`` in neither; (e) seconds per suite.  The full
+              script runs it in a third process (``--phase-15``), started
+              with phase 10 and waited for after phase 14.
+              ``--bench-run`` runs ``repro_torch.bench.run``'s whole quick
+              order but ``fig11`` alone after the build, the integer rows
+              and cells held equal and the fine-tuned runs' distances
+              printed, then pretrains Fig. 11's quick table on the card and
+              runs ``fig11`` from it (recorded, not gated).
 
 The last lines are the card's ``nvidia-smi`` line, a ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -2257,11 +2275,15 @@ def check_tuned(name: str, d: dict, equal: tuple = CONCURRENT_EQUAL) -> None:
     if name in equal:
         check(d["equal"], f"{name}: not equal to the JAX package's run, as the CPU rehearsal was: {d}")
         return
-    check(d["n_predictions_equal"] and d.get("occupancy_equal", True), f"{name}: prediction count or occupancy differ")
-    check(d["top1_diff"] <= RUN_TOP1_ATOL, f"{name}: top-1 {d['top1']} is {d['top1_diff']} from the reference's")
-    check(max(d.get("stats_rtol", {"-": 0}).values()) <= RUN_STATS_RTOL, f"{name}: counters off by rtol {d}")
-    check(d["first_groups_acc_diff"] <= RUN_GROUP_ACC_ATOL, f"{name}: the first groups' accuracies differ by "
-          f"{d['first_groups_acc_diff']}")
+    check(within_limits(d), f"{name}: outside phase 7 (b)'s limits (counts equal, top-1 {RUN_TOP1_ATOL}, counters "
+          f"rtol {RUN_STATS_RTOL}, the first groups' accuracies {RUN_GROUP_ACC_ATOL}): {d}")
+
+
+def within_limits(d: dict) -> bool:
+    """Phase 7 (b)'s limits on a run's distance from the reference's."""
+    return (d["n_predictions_equal"] and d.get("occupancy_equal", True) and d["top1_diff"] <= RUN_TOP1_ATOL
+            and max(d.get("stats_rtol", {"-": 0}).values()) <= RUN_STATS_RTOL
+            and d["first_groups_acc_diff"] <= RUN_GROUP_ACC_ATOL)
 
 
 def count_syncs(dev, run) -> tuple:
@@ -3823,19 +3845,239 @@ def _server_checks(dev, tmp: Path, aot_miss: bool, ref: dict, on: list, aot: lis
     return launches
 
 
-PHASE14_KEY = "phase_14_launches"
+# --- phase 15: the benchmark driver ------------------------------------------------------
+
+FIGURES_QUICK_REF = ROOT / "experiments" / "torch" / "figures_quick_ref.json"
+BENCH_RUN_ONLY = ("table1", "table7")
+# (b): Table VII's quick protocol runs that the CPU rehearsal
+# (``scripts/rehearse_bench_run_cpu.py``) gives equal to the JAX package's:
+# all but Hotspot+Srad-v2's online_single (0.0018 off in top-1), which is
+# held within phase 7 (b)'s limits
+BENCH_RUN_EQUAL = tuple(f"{p}|{m}" for p in ("StreamTriad+2DCONV", "Hotspot+Srad-v2", "NW+2DCONV", "ATAX+Srad-v2")
+                        for m in ("online_single", "ours") if (p, m) != ("Hotspot+Srad-v2", "online_single"))
+#: the suites whose rows come from integer cells alone (--bench-run holds them equal)
+EXACT_SUITES = ("table1", "table2", "table3", "table4", "fig3")
+_CELL_OF = re.compile(r"benchmark='([^']+)'")
 
 
-class Phase14Process:
-    """Phase 14 in a process of its own (``chip_smoke.py --phase-14``), so
+def bench_run(dev, names) -> dict:
+    """``python -m repro_torch.bench.run --scale quick --only <names>`` on
+    ``dev``, in process: each suite's host seconds and launches (every count
+    set to 0 just before it and read just after), its printed rows, which
+    must equal the rows it returned and its CSV's, every protocol run it
+    made by ``(suite, trace, mode, from a table, kind)`` (``current[0]``
+    names the suite), and the context."""
+    import csv
+    import io
+
+    from repro_torch import kernels
+    from repro_torch.bench import run as BR
+
+    suites, per, protocols, ctxs, current = dict(BR.SUITES), {}, {}, [], [None]
+
+    def measured(name):
+        def suite(ctx):
+            if not ctxs:
+                ctxs.append(ctx)
+                plain = ctx.protocol
+
+                def recording(w, mode, table=None, kind="transformer"):
+                    res = plain(w, mode, table=table, kind=kind)
+                    protocols[(current[0], getattr(w, "name", w), mode, table is not None, kind)] = res
+                    return res
+
+                ctx.protocol = recording
+            current[0] = name
+            _sync(dev)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            rows = suites[name](ctx)
+            _sync(dev)
+            per[name] = {"seconds": time.perf_counter() - t0, "launches": dict(kernels.LAUNCHES)}
+            return rows
+        return suite
+
+    out = io.StringIO()
+    BR.SUITES = {n: measured(n) for n in suites}
+    try:
+        with contextlib.redirect_stdout(out):
+            rows = BR.main(["--scale", "quick", "--only", *names, "--device", dev.type])
+    finally:
+        BR.SUITES = suites
+    printed, head = {}, None
+    for ln in out.getvalue().splitlines():
+        if ln.startswith("{"):
+            printed[head].append(json.loads(ln))
+        elif not ln.startswith("#"):
+            head = ln.split(",", 1)[0]
+            printed[head] = []
+            print("  " + ln)
+        else:
+            print("  " + ln)
+    check(list(printed.values()) == [json.loads(json.dumps(rows[n])) for n in names],
+          "the printed rows are not the rows the driver returned")
+    for head, n in zip(printed, names):
+        with (BR.OUT_DIR / f"{head}.csv").open(newline="") as f:
+            got = list(csv.DictReader(f))
+        check(got == [{k: "" if v is None else str(v) for k, v in r.items()} for r in rows[n]],
+              f"{head}.csv is not the printed rows")
+    return {"rows": rows, "suites": per, "protocols": protocols, "ctx": ctxs[0], "current": current}
+
+
+def ref_cells(*refs) -> dict:
+    """The references' cells by ``(kind, workload, ...)``, a merge's
+    ``WorkloadSpec`` by its benchmark name."""
+    out = {}
+    for ref in refs:
+        for key, cell in ref["cells"].items():
+            kind, w, *rest = key.split("|")
+            m = _CELL_OF.search(w)
+            out[(kind, m.group(1) if m else w, *rest)] = cell
+    return out
+
+
+def table7_distances(protocols: dict, cells: dict, suite: str = "table7") -> dict:
+    """Table VII's protocol runs against the reference's cells."""
+    from repro_torch.bench.tables import CONCURRENT_PAIRS
+
+    out = {}
+    for a, b in CONCURRENT_PAIRS:
+        for mode, tail in (("online_single", ()), ("ours", ("chain_seed0=321", "link0"))):
+            want = cells[("protocol", f"{a}+{b}", mode, *tail)]
+            res = protocols[(suite, f"{a}+{b}", mode, mode == "ours", "transformer")]
+            out[f"{a}+{b}|{mode}"] = protocol_distance(res, want)
+    return out
+
+
+def bench_run_path(dev) -> dict:
+    """Phase 15: the driver (``repro_torch.bench.run``) at the quick preset on
+    ``BENCH_RUN_ONLY`` against ``tables_quick_ref.json``: (a) Table I's rows
+    equal; (b) Table VII's protocol runs equal where ``BENCH_RUN_EQUAL``
+    says, else within phase 7 (b)'s limits; (c) the CSVs the printed rows;
+    (d) ``evict_select`` launched in Table I, the attention, its backward and
+    ``thrash_ce`` in Table VII, ``freq_update`` in neither; (e) seconds per
+    suite.  Returns the launches of both suites together."""
+    quick = json.loads(TABLES_QUICK_REF.read_text())
+    got = bench_run(dev, BENCH_RUN_ONLY)
+    check(got["rows"]["table1"] == quick["tables_rows"]["table1"], "Table I's quick rows differ from the JAX package's")
+    dist = table7_distances(got["protocols"], ref_cells(quick))
+    print("  (b) Table VII: " + json.dumps({k: {f: d[f] for f in ("top1", "top1_diff", "first_groups_acc_diff",
+                                                                   "equal")} for k, d in dist.items()}))
+    for name, d in dist.items():
+        check_tuned(name, d, BENCH_RUN_EQUAL)
+    suites = got["suites"]
+    print("  (d), (e) " + json.dumps({n: {"seconds": v["seconds"], "launches": {k: c for k, c in v["launches"].items()
+                                                                               if c}} for n, v in suites.items()}))
+    bench_launch_checks(suites)
+    return {k: sum(v["launches"][k] for v in suites.values()) for k in suites["table1"]["launches"]}
+
+
+def bench_launch_checks(suites: dict) -> None:
+    """Phase 15 (d)."""
+    check(suites["table1"]["launches"]["evict_select"] > 0, "Table I never launched evict_select")
+    for k in ("flash_attention", "flash_attention_bwd", "thrash_ce_fwd", "thrash_ce_bwd"):
+        check(suites["table7"]["launches"][k] > 0, f"Table VII never launched {k}")
+    check(all(v["launches"]["freq_update"] == 0 for v in suites.values()), "phase 15 launched freq_update")
+
+
+def slot_sha256(params: dict) -> str:
+    """``export_torch_reference.slot_params_sha256`` of a port slot."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(params[k].detach().cpu().numpy(), "<f4").tobytes())
+    return h.hexdigest()
+
+
+def bench_run_all(dev) -> None:
+    """``--bench-run``: ``repro_torch.bench.run``'s default order at the
+    quick preset less ``fig11`` against ``tables_quick_ref.json`` and
+    ``figures_quick_ref.json``
+    (the rows of ``EXACT_SUITES`` and every simulator and UVMSmart cell
+    equal, or it fails; every fine-tuned ``ours`` and protocol run's distance
+    printed, those beyond phase 7 (b)'s limits listed), seconds per suite;
+    then Fig. 11's route: the port pretrains ``PretrainSpec(0.24,
+    seed0=123)`` itself and runs ``fig11`` from it, each slot and row
+    against the JAX package's (recorded, not gated)."""
+    from repro_torch.bench import figures as FG
+    from repro_torch.bench import run as BR
+    from repro_torch.uvm.api.session import pretrained_table
+    from repro_torch.uvm.api.specs import PretrainSpec
+
+    quick, figq = json.loads(TABLES_QUICK_REF.read_text()), json.loads(FIGURES_QUICK_REF.read_text())
+    refs = {**quick["tables_rows"], **figq["figures_rows"]}
+    cells = ref_cells(quick, figq)
+    t0 = time.perf_counter()
+    got = bench_run(dev, [n for n in BR.ORDER if n != "fig11"])
+    total = time.perf_counter() - t0
+    ctx, rows = got["ctx"], got["rows"]
+    for n in EXACT_SUITES:
+        check(rows[n] == refs[n], f"{n}'s rows differ from the JAX package's")
+    bad = [(k, st) for k, st in ctx._sims.items() if isinstance(k[0], str)
+           and st != cells.get(("sim", k[0], f"{k[1]}+{k[2]}", str(k[3])), {}).get("stats")]
+    bad += [(k, st) for k, st in ctx._smart.items() if st != cells.get(("uvmsmart", k[0], str(k[1])), {}).get("stats")]
+    check(not bad, f"simulator or UVMSmart cells differ from the JAX package's: {bad}")
+    dist = {}
+    for (name, _, os_, tenancy, thrash), res in ctx._ours.items():
+        key = ("ours", name, str(os_), f"thrash={thrash}") + (() if tenancy == "mux" else (f"tenancy={tenancy}",))
+        dist["|".join(key)] = run_distance(res, cells[key])
+    for (suite, name, mode, tabled, kind), res in got["protocols"].items():
+        key = ("protocol", name, mode) + (("chain_seed0=321", "link0") if tabled else ()) + (
+            () if kind == "transformer" else (f"kind={kind}",))
+        dist["|".join(key)] = protocol_distance(res, cells[key])
+    outside = sorted(k for k, d in dist.items() if not d["equal"] and not within_limits(d))
+    equal = sum(d["equal"] for d in dist.values())
+    print(f"  {len(ctx._sims)} simulator cells, {len(ctx._smart)} UVMSmart runs and the rows of "
+          f"{', '.join(EXACT_SUITES)} equal; fine-tuned runs: {equal} of {len(dist)} equal, outside phase 7 (b)'s "
+          f"limits: {outside}")
+    print("  distances: " + json.dumps({k: {f: d[f] for f in ("top1_diff", "first_groups_acc_diff", "equal")}
+                                        for k, d in dist.items()}))
+    for n in rows:
+        want = refs[n]["rows"] if isinstance(refs[n], dict) else refs[n]  # Tables IX and X keep their runs beside
+        if rows[n] != want:
+            print(f"  {n}: rows differ (got, JAX's): " + json.dumps([[g, w] for g, w in zip(rows[n], want) if g != w]))
+    print("  seconds: " + json.dumps({n: round(v["seconds"], 3) for n, v in got["suites"].items()})
+          + f", total {total:.1f}")
+    # Fig. 11's route: the port pretrains the quick table itself
+    spec = figq["fig11_quick"]
+    _sync(dev)
+    t0 = time.perf_counter()
+    table = pretrained_table(PretrainSpec(**spec["pretrain"]), ctx.pcfg, ctx.train, memo_dir=None, device=dev)
+    _sync(dev)
+    pretrain_s = time.perf_counter() - t0
+    slots = {str(s): {"sha256_equal": slot_sha256(e.params) == spec["slots"][str(s)]["sha256"], "step": e.step,
+                      "last_acc": e.last_acc, "jax": {k: spec["slots"][str(s)][k] for k in ("step", "last_acc")}}
+             for s, e in sorted(table.slots.items())}
+    print(f"  Fig. 11's table pretrained on {dev.type} in {pretrain_s:.1f} s (JAX on a CPU "
+          f"{spec['pretrain_seconds']:.1f} s): " + json.dumps(slots))
+    ctx._tables["fig11"] = table
+    got["current"][0] = "fig11"
+    t0 = time.perf_counter()
+    fig11 = FG.fig11(ctx)
+    links = [(k[1], r) for k, r in got["protocols"].items() if k[0] == "fig11" and k[3]]
+    chain = {b: protocol_distance(r, cells[("protocol", b, "ours", "chain_seed0=123", f"link{i}")])
+             for i, (b, r) in enumerate(links)}
+    print(f"  fig11 from it in {time.perf_counter() - t0:.1f} s; rows: "
+          + json.dumps([{k: [g[k], w[k]] for k in g if g[k] != w[k]} for g, w in zip(fig11, refs["fig11"])])
+          + "; chain links: " + json.dumps({b: {f: d[f] for f in ("top1_diff", "first_groups_acc_diff", "equal")}
+                                             for b, d in chain.items()}))
+
+
+class PhaseProcess:
+    """Phase ``n`` in a process of its own (``chip_smoke.py --phase-<n>``), so
     that it runs beside later phases of this one; its output goes to a
     temporary file until :meth:`result`, which waits for it."""
 
-    def __init__(self):
+    def __init__(self, n: int):
         import tempfile
 
+        self.n, self.key = n, f"phase_{n}_launches"
         self.log = tempfile.TemporaryFile(mode="w+")
-        self.proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--phase-14"],
+        self.proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), f"--phase-{n}"],
                                      stdout=self.log, stderr=subprocess.STDOUT, text=True, cwd=str(ROOT))
 
     def result(self, timeout: float = 600) -> tuple[dict, float]:
@@ -3846,19 +4088,17 @@ class Phase14Process:
         except subprocess.TimeoutExpired:
             rc = None
         finally:
-            if self.proc.poll() is None:
-                self.proc.kill()
-                self.proc.wait()
+            self.kill()
         self.log.seek(0)
         lines = self.log.read().splitlines()
         self.log.close()
-        body = lines[next((i + 1 for i, ln in enumerate(lines) if ln.startswith("[2/14]")), 0):]
+        body = lines[next((i + 1 for i, ln in enumerate(lines) if ln.startswith("[2/15]")), 0):]
         for ln in body:
-            if not ln.startswith("{") and "phase 14 alone took" not in ln:
+            if not ln.startswith("{") and f"phase {self.n} alone took" not in ln:
                 print(ln)
         last = json.loads(lines[-1]) if rc == 0 and lines and lines[-1].startswith("{") else {}
-        check(PHASE14_KEY in last, f"phase 14's process exited with {rc}: " + "\n".join(lines[-20:]))
-        return last[PHASE14_KEY], last["seconds"]
+        check(self.key in last, f"phase {self.n}'s process exited with {rc}: " + "\n".join(lines[-20:]))
+        return last[self.key], last["seconds"]
 
     def kill(self) -> None:
         if self.proc.poll() is None:
@@ -3884,6 +4124,12 @@ def main() -> int:
     ap.add_argument("--server", action="store_true",
                     help="after the build, run phase 14 alone, and a cli server that builds the kernels into an "
                          "empty AOT cache (no result line)")
+    ap.add_argument("--bench-run", action="store_true",
+                    help="after the build, run repro_torch.bench.run's quick order less fig11 against the quick "
+                         "references, then Fig. 11's route (no result line)")
+    ap.add_argument("--phase-15", action="store_true",
+                    help="after the build, run phase 15 alone and print its launches as the last line (the full "
+                         "script runs this beside phases 10-14)")
     ap.add_argument("--phase-14", action="store_true",
                     help="after the build, run phase 14 alone and print its launches as the last line (the full "
                          "script runs this beside phases 10-13)")
@@ -3903,18 +4149,18 @@ def main() -> int:
         print(f"chip_smoke: the port (src/repro_torch) is not next to this script: {exc}", file=sys.stderr)
         return 2
     start = time.perf_counter()
-    phase14 = None
+    phase14 = phase15 = None
     try:
         dev = torch.device("cuda", 0)
         name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
         smi = nvidia_smi_line()
-        print(f"[1/14] device: {name} (count {count}); nvidia-smi: {smi}")
+        print(f"[1/15] device: {name} (count {count}); nvidia-smi: {smi}")
         print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
         t0 = time.perf_counter()
         LIBRARY.cdll()
         how = "built" if LIBRARY.build_seconds is not None else "loaded the existing build"
-        print(f"[2/14] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
+        print(f"[2/15] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
         for line in LIBRARY.ptxas_log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line or line.startswith("=="):
                 print("      " + line.strip())
@@ -3934,16 +4180,26 @@ def main() -> int:
                   + json.dumps({k: c for k, c in launches.items() if c}))
             return 0
 
+        if args.bench_run:
+            bench_run_all(dev)
+            print(smi)
+            return 0
         if args.server or args.phase_14:
             t14 = time.perf_counter()
             launches = server_path(dev, aot_miss=args.server)
             print(f"      phase 14 alone took {time.perf_counter() - t14:.1f} s; launches "
                   + json.dumps({k: c for k, c in launches.items() if c}))
             if args.phase_14:
-                print(json.dumps({PHASE14_KEY: launches, "seconds": time.perf_counter() - t14}))
+                print(json.dumps({"phase_14_launches": launches, "seconds": time.perf_counter() - t14}))
+            return 0
+        if args.phase_15:
+            t15 = time.perf_counter()
+            launches = bench_run_path(dev)
+            print(f"      phase 15 alone took {time.perf_counter() - t15:.1f} s")
+            print(json.dumps({"phase_15_launches": launches, "seconds": time.perf_counter() - t15}))
             return 0
 
-        print(f"[3/14] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
+        print(f"[3/15] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
         rows = [kernel_evict_select(dev), *kernel_freq_table(dev), kernel_flash_attention(dev),
                 kernel_flash_attention_bf16(dev), kernel_flash_attention_bwd(dev), kernel_decode_attention(dev),
                 kernel_ssd_scan(dev), *kernel_thrash_ce(dev)]
@@ -3962,16 +4218,16 @@ def main() -> int:
               f"step {tf['step_device_ops_per_call']}")
 
         by_path = {}
-        print(f"[4/14] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
+        print(f"[4/15] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         _, by_path["run_ours"] = main_path(dev)
-        print(f"[5/14] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
+        print(f"[5/15] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["serve"], qwen2_engine, qwen2_prompt = serve_path(dev)
-        print(f"[6/14] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
+        print(f"[6/15] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["serve_mamba2"] = serve_mamba2_path(dev)
-        print(f"[7/14] train: one train_group, the fine-tuned run_ours (Hotspot x1.5, CONFIG, TrainConfig()) and the "
+        print(f"[7/15] train: one train_group, the fine-tuned run_ours (Hotspot x1.5, CONFIG, TrainConfig()) and the "
               f"manager KV offload (qwen2-0.5b full width), on the card (at {time.perf_counter() - start:.0f} s)")
         by_path["train_group"] = train_group_check(dev)
         print(f"      (b) at {time.perf_counter() - start:.0f} s")
@@ -3979,51 +4235,57 @@ def main() -> int:
         print(f"      (c) at {time.perf_counter() - start:.0f} s")
         by_path["serve_manager"] = serve_manager_check(dev, qwen2_engine, qwen2_prompt)
         del qwen2_engine
-        print(f"[8/14] tables: the table runner at the paper preset, x1.25, 11 benchmarks (five simulator cells, "
+        print(f"[8/15] tables: the table runner at the paper preset, x1.25, 11 benchmarks (five simulator cells, "
               f"UVMSmart, frozen ours; fine-tuned ours on {len(TABLES_TUNED)}), on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["table6"], tables_ctx, tables_tuned = tables_path(dev)
         t9 = time.perf_counter()
-        print(f"[9/14] concurrent: Tables VII and VIII's cells, four pairs at the paper preset, x1.25 (frozen mux and "
+        print(f"[9/15] concurrent: Tables VII and VIII's cells, four pairs at the paper preset, x1.25 (frozen mux and "
               f"merged on all four; fine-tuned and Table VII on {', '.join(CONCURRENT_TUNED)}), on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["concurrent"] = concurrent_path(dev)
         print(f"      phase 9 took {time.perf_counter() - t9:.1f} s")
         t10 = time.perf_counter()
-        phase14 = Phase14Process()
-        print(f"[10/14] figures: Figs. 3, 12, 13 and 14's cells on {', '.join(FIG3_BENCH)} and Figs. 4 and 11's "
+        phase14, phase15 = PhaseProcess(14), PhaseProcess(15)
+        print(f"[10/15] figures: Figs. 3, 12, 13 and 14's cells on {', '.join(FIG3_BENCH)} and Figs. 4 and 11's "
               f"protocols on {FIG_TUNED} at the paper preset, on the card (at {t10 - start:.0f} s)")
         by_path["figures"] = figures_path(dev, tables_ctx, tables_tuned)
         print(f"      phase 10 took {time.perf_counter() - t10:.1f} s")
         t11 = time.perf_counter()
-        print(f"[11/14] zoo and QoS: the JAX package's initial weights, Fig. 10's four predictor kinds on "
+        print(f"[11/15] zoo and QoS: the JAX package's initial weights, Fig. 10's four predictor kinds on "
               f"{FIG10_BENCH}, Table IX's first drift trace, Table X's StreamTriad+RandomScan under budgets and the "
               f"random policy, on the card (at {t11 - start:.0f} s)")
         by_path["zoo_qos"] = zoo_qos_path(dev)
         print(f"      phase 11 took {time.perf_counter() - t11:.1f} s; launches "
               + json.dumps({k: c for k, c in by_path["zoo_qos"].items() if c}))
         t12 = time.perf_counter()
-        print(f"[12/14] fault tolerance: snapshots of the manager (Hotspot frozen, ATAX fine-tuned), the mux "
+        print(f"[12/15] fault tolerance: snapshots of the manager (Hotspot frozen, ATAX fine-tuned), the mux "
               f"(StreamTriad+2DCONV) and the KV offload, the health machine under chaos, plug-ins through run_batch "
               f"and the fault log, on the card (at {t12 - start:.0f} s)")
         by_path["fault_tolerance"] = fault_tolerance_path(dev)
         print(f"      phase 12 took {time.perf_counter() - t12:.1f} s; launches "
               + json.dumps({k: c for k, c in by_path["fault_tolerance"].items() if c}))
         t13 = time.perf_counter()
-        print(f"[13/14] experiment API: cli sweep, sweep --spec, run, export, serve (checkpoint and resume) and "
+        print(f"[13/15] experiment API: cli sweep, sweep --spec, run, export, serve (checkpoint and resume) and "
               f"report on a temporary run store, and run_ours_many over {', '.join(API_LANES)} and "
               f"{'+'.join(API_PAIR)}, on the card (at {t13 - start:.0f} s)")
         by_path["experiment_api"] = experiment_api_path(dev, tables_ctx)
         print(f"      phase 13 took {time.perf_counter() - t13:.1f} s; launches "
               + json.dumps({k: c for k, c in by_path["experiment_api"].items() if c}))
         t14 = time.perf_counter()
-        print(f"[14/14] server: FaultStreamServer in every dispatch mode with run_loadgen's clients on the drift and "
+        print(f"[14/15] server: FaultStreamServer in every dispatch mode with run_loadgen's clients on the drift and "
               f"churn logs, a stacked evaluate_many and train_group_many at CONFIG, isolation, kill -9 and --resume of "
               f"cli server with its AOT cache, and load, on the card, in a process started with phase 10 (at "
               f"{t14 - start:.0f} s)")
         by_path["server"], seconds = phase14.result()
         print(f"      phase 14 took {seconds:.1f} s beside phases 10-13, and {time.perf_counter() - t14:.1f} s more "
               "here; launches " + json.dumps({k: c for k, c in by_path["server"].items() if c}))
+        t15 = time.perf_counter()
+        print(f"[15/15] benchmark driver: python -m repro_torch.bench.run --scale quick --only "
+              f"{' '.join(BENCH_RUN_ONLY)}, on the card, in a process started with phase 10 (at {t15 - start:.0f} s)")
+        by_path["bench_run"], seconds = phase15.result()
+        print(f"      phase 15 took {seconds:.1f} s beside phases 10-14, and {time.perf_counter() - t15:.1f} s more "
+              "here; launches " + json.dumps({k: c for k, c in by_path["bench_run"].items() if c}))
         for r in rows:
             r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}
             r["launches"] = sum(r["launches_by_path"].values())
@@ -4033,8 +4295,9 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     finally:
-        if phase14 is not None:
-            phase14.kill()
+        for proc in (phase14, phase15):
+            if proc is not None:
+                proc.kill()
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -182,7 +182,29 @@ ATAX and Hotspot at the paper preset's scale (``RANDOM_RUNS``): stats and
 the SHA-256 of the final state's resident, evicted-once and last-access
 arrays.  The pretraining memos are read from a temporary copy, so nothing
 under ``experiments/cache/`` is written.  It takes about 4.5 minutes on a
-CPU, 2 of them Fig. 10 at the paper preset.
+CPU, 2 of them Fig. 10 at the paper preset.  It rewrites both files whole,
+so run the two below after it.
+
+    PYTHONPATH=src python scripts/export_torch_reference.py --quick-table7
+    PYTHONPATH=src python scripts/export_torch_reference.py --quick-fig11
+
+``--quick-table7`` writes ``experiments/torch/pretrain_quick_s321.npz``, the
+quick preset's Table VII table (``PretrainSpec(scale=0.24, seed0=321)`` at
+``CONFIG_QUICK``, ``TrainConfig(1024, 2, 128)``, two rounds) as
+``pretrain_paper.npz`` is written, with the same checks, and adds to
+``tables_quick_ref.json`` the rows of ``benchmarks/tables.py``'s ``table7``
+on a recording quick ``Session``, its protocol cells (each pair's
+``online_single`` and the ``ours`` from that table: top-1, per-group
+accuracies, counts), and ``table7_quick``: the recipe, every slot's
+``step``, ``n_updates`` and ``last_acc``, and the SHA-256 of every array of
+the file (:func:`table_sha256`).  ``--quick-fig11`` adds to
+``figures_quick_ref.json`` Fig. 11's quick rows and cells and
+``fig11_quick``: its table's recipe (``seed0=123``; the table is not
+written) and every slot's SHA-256 over its params
+(:func:`slot_params_sha256`), ``step``, ``n_updates`` and ``last_acc``.  Each
+asserts that no key already in its file changes, reads the memos from a
+temporary copy, and takes about 40 seconds on a CPU.  Every JSON reference
+is written as one line without spaces (:func:`_write_compact`).
 
     PYTHONPATH=src python scripts/export_torch_reference.py --fault-tolerance
 
@@ -248,6 +270,12 @@ ROOT = Path(__file__).resolve().parent.parent
 OUT = ROOT / "experiments" / "torch"
 GROUP = 2048
 CUT_GROUPS = 8
+
+
+def _write_compact(path: Path, ref: dict) -> None:
+    """A JSON reference as one line without spaces (the tracked tree sits
+    near the size the driver can copy)."""
+    path.write_text(json.dumps(ref, separators=(",", ":")) + "\n")
 
 
 def _recorded_run(trace, table, oversub: float, tcfg=None) -> dict:
@@ -834,7 +862,7 @@ def _export_tables(tmp: Path) -> None:
     rows["table6_frozen"] = BT.table6(_TableContext(benches, traces, out, ours["frozen"], CONFIG, frozen_cfg))
     ref = {**TABLES, "train": {"frozen": dataclasses.asdict(frozen_cfg), "fine_tuned": dataclasses.asdict(tuned_cfg)},
            "benchmarks": out, "tables": rows, "seconds": time.perf_counter() - t_start}
-    (OUT / "tables_paper_ref.json").write_text(json.dumps(ref, indent=1) + "\n")
+    _write_compact(OUT / "tables_paper_ref.json", ref)
     print(json.dumps({"seconds": ref["seconds"], "table6": rows["table6"][0], "table6_frozen": rows["table6_frozen"][0]}))
 
 
@@ -1056,7 +1084,7 @@ def _export_concurrent(tmp: Path) -> None:
            "base_slots": sorted(base_slots), "table7_slots": sorted(t7.slots), "init_slots": sorted(created),
            "pairs_ref": out, "tables": rows, "pretrain_seconds": pretrain_s,
            "seconds": time.perf_counter() - t_start}
-    (OUT / "concurrent_paper_ref.json").write_text(json.dumps(ref, indent=1) + "\n")
+    _write_compact(OUT / "concurrent_paper_ref.json", ref)
     print(json.dumps({"seconds": ref["seconds"], "init_slots": ref["init_slots"], "table7_slots": ref["table7_slots"],
                       "table8": rows["table8"][0], "table8_frozen": rows["table8_frozen"][0]}))
 
@@ -1179,7 +1207,7 @@ def _export_figures(tmp: Path) -> None:
            "fig11_table": exported, "created_slots": sorted(created), "init_slots": init_slots, "cells": sess.cells,
            "figures_rows": rows, "figure_seconds": seconds, "pretrain_seconds": pretrain_s,
            "seconds": time.perf_counter() - t_start}
-    (OUT / "figures_paper_ref.json").write_text(json.dumps(ref, indent=1) + "\n")
+    _write_compact(OUT / "figures_paper_ref.json", ref)
     print(json.dumps({"seconds": ref["seconds"], "figure_seconds": seconds, "created_slots": ref["created_slots"],
                       "init_slots": init_slots}))
 
@@ -1382,7 +1410,7 @@ def _export_quick(tmp: Path) -> None:
     ref = {**QUICK, "train": dataclasses.asdict(TrainConfig(1024, 2, 128)), "benchmarks": list(sess.benches),
            "cells": sess.cells, "tables_rows": rows, "table_seconds": seconds,
            "seconds": time.perf_counter() - t_start}
-    (OUT / "tables_quick_ref.json").write_text(json.dumps(ref, indent=1) + "\n")
+    _write_compact(OUT / "tables_quick_ref.json", ref)
     t_start = time.perf_counter()
     sess = Recording(store=RunStore(enabled=False))
     rows, seconds = {}, {}
@@ -1392,7 +1420,7 @@ def _export_quick(tmp: Path) -> None:
         seconds[name] = time.perf_counter() - t0
     ref = {**QUICK, "featured": list(BF.FEATURED), "cells": sess.cells,
            "figures_rows": rows, "figure_seconds": seconds, "seconds": time.perf_counter() - t_start}
-    (OUT / "figures_quick_ref.json").write_text(json.dumps(ref, indent=1) + "\n")
+    _write_compact(OUT / "figures_quick_ref.json", ref)
     # Fig. 10 at the paper preset, added to figures_paper_ref.json
     path = OUT / "figures_paper_ref.json"
     paper = json.loads(path.read_text())
@@ -1403,8 +1431,199 @@ def _export_quick(tmp: Path) -> None:
     paper["cells"].update({k: v for k, v in sess.cells.items() if "|kind=" in k})
     if "fig10" not in paper["figures"]:
         paper["figures"].append("fig10")
-    path.write_text(json.dumps(paper, indent=1) + "\n")
+    _write_compact(path, paper)
     print(json.dumps({"fig10": paper["figures_rows"]["fig10"], "seconds": paper["figure_seconds"]["fig10"]}))
+
+
+#: the quick preset's Section V-A tables of Table VII (written to
+#: ``pretrain_quick_s321.npz``) and Fig. 11 (measured, not written)
+QUICK_TABLE7 = {"scale": 0.24, "seed0": 321, "max_rounds": 2}
+QUICK_FIG11 = {"scale": 0.24, "seed0": 123, "max_rounds": 2}
+
+
+def array_sha256(a) -> str:
+    """The SHA-256 of a float32 array's little-endian bytes (C order)."""
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(np.asarray(a), "<f4").tobytes()).hexdigest()
+
+
+def table_sha256(table) -> dict:
+    """Every array of a model table as ``_write_table_npz`` names it
+    (``slot<s>/<key>``, ``slot<s>/opt/{m,v}/<key>``, ``slot<s>/prev/<key>``)
+    -> its :func:`array_sha256`."""
+    out = {}
+    for s, e in sorted(table.slots.items()):
+        trees = [("", e.params)]
+        if e.opt_state is not None:
+            trees += [("opt/m/", e.opt_state.m), ("opt/v/", e.opt_state.v)]
+        if e.prev_params is not None:
+            trees.append(("prev/", e.prev_params))
+        out.update({f"slot{s}/{prefix}{k}": array_sha256(v) for prefix, tree in trees for k, v in sorted(tree.items())})
+    return out
+
+
+def slot_params_sha256(params: dict) -> str:
+    """One SHA-256 over a slot's params, key by key in sorted order (each
+    key's UTF-8 name, then its float32 little-endian bytes);
+    ``chip_smoke.py`` hashes the port's slots the same way."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(np.asarray(params[k]), "<f4").tobytes())
+    return h.hexdigest()
+
+
+def _unchanged(old, new, path: str = "") -> None:
+    """Assert that every key of ``old`` (recursively) holds the same value in
+    ``new``: a reference file only gains keys."""
+    if isinstance(old, dict):
+        assert isinstance(new, dict), path
+        for k, v in old.items():
+            assert k in new, f"{path}/{k} went missing"
+            _unchanged(v, new[k], f"{path}/{k}")
+    else:
+        assert old == new, f"{path} changed"
+
+
+def _add_keys(path: Path, add) -> None:
+    """Rewrite the JSON file at ``path`` with ``add(ref)``'s new keys, after
+    asserting that no key already there changed."""
+    import copy
+
+    old = json.loads(path.read_text())
+    new = copy.deepcopy(old)
+    add(new)
+    _unchanged(old, new)
+    _write_compact(path, new)
+
+
+def _quick_session(tmp: Path):
+    """A recording quick ``Session(store=RunStore(enabled=False))`` whose
+    pretraining memos come from a temporary copy of the committed ones (a
+    recipe without one pretrains and writes its memo there, never under
+    ``experiments/cache/``)."""
+    import shutil
+
+    sys.path.insert(0, str(ROOT))  # the benchmarks package
+    import benchmarks.common as BC
+    from repro.uvm import runtime as R
+    from repro.uvm.api.session import Session
+    from repro.uvm.api.store import RunStore
+
+    BC.OUT_DIR = tmp  # the tables' and figures' CSVs
+    R.PRETRAIN_CACHE_DIR = tmp / "pretrain"
+    R.PRETRAIN_CACHE_DIR.mkdir()
+    for name in QUICK["memos"]:
+        shutil.copy(ROOT / "experiments" / "cache" / name, R.PRETRAIN_CACHE_DIR / name)
+    sess = _recording_session(Session)(store=RunStore(enabled=False))
+    assert (sess.scale, sess.cap) == (QUICK["scale"], QUICK["cap"])
+    return sess
+
+
+def export_quick_table7() -> None:
+    """Table VII's quick table and cells (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="repro_quick_table7_"))
+    os.environ["REPRO_JAX_CACHE"] = str(tmp)  # read when repro.uvm.api is imported
+    try:
+        _export_quick_table7(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _export_quick_table7(tmp: Path) -> None:
+    import dataclasses
+    import time
+
+    sess = _quick_session(tmp)
+    import benchmarks.tables as BT
+    from repro.configs.predictor_paper import CONFIG_QUICK
+    from repro.core.incremental import TrainConfig, Trainer
+
+    c = QUICK_TABLE7
+    pspec = dataclasses.replace(sess.default_pretrain, seed0=c["seed0"])
+    assert (pspec.scale, pspec.max_rounds) == (c["scale"], c["max_rounds"]), pspec
+    trainer = Trainer(CONFIG_QUICK, TrainConfig(1024, 2, 128))
+    t0 = time.perf_counter()
+    table = sess.pretrained(pspec)
+    pretrain_s = time.perf_counter() - t0
+    exported = _export_table(table, OUT / "pretrain_quick_s321.npz", trainer)
+    print(json.dumps(exported), flush=True)
+    t0 = time.perf_counter()
+    rows = BT.table7(sess)
+    seconds = time.perf_counter() - t0
+    assert len(sess.cells) == 8 and all(k.endswith(("|online_single", f"|ours|chain_seed0={c['seed0']}|link0"))
+                                        for k in sess.cells), sorted(sess.cells)
+
+    def add(ref):
+        ref["tables_rows"]["table7"] = rows
+        ref["table_seconds"]["table7"] = seconds
+        assert not set(sess.cells) & set(ref["cells"])
+        ref["cells"].update(sess.cells)
+        ref["table7_quick"] = {
+            "pretrain": c, "train": dataclasses.asdict(trainer.tcfg), "table": exported,
+            "slots": {str(s): {"step": e.step, "n_updates": e.n_updates, "last_acc": e.last_acc}
+                      for s, e in sorted(table.slots.items())},
+            "sha256": table_sha256(table), "pretrain_seconds": pretrain_s}
+
+    _add_keys(OUT / "tables_quick_ref.json", add)
+    print(json.dumps({"table7": rows, "seconds": seconds, "pretrain_seconds": pretrain_s}))
+
+
+def export_quick_fig11() -> None:
+    """Fig. 11's quick rows and its table's fingerprint (see the module
+    docstring)."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="repro_quick_fig11_"))
+    os.environ["REPRO_JAX_CACHE"] = str(tmp)  # read when repro.uvm.api is imported
+    try:
+        _export_quick_fig11(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _export_quick_fig11(tmp: Path) -> None:
+    import dataclasses
+    import time
+
+    sess = _quick_session(tmp)
+    import benchmarks.figures as BF
+
+    c = QUICK_FIG11
+    pspec = dataclasses.replace(sess.default_pretrain, seed0=c["seed0"])
+    assert (pspec.scale, pspec.max_rounds) == (c["scale"], c["max_rounds"]), pspec
+    t0 = time.perf_counter()
+    table = sess.pretrained(pspec)
+    pretrain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = BF.fig11(sess)
+    seconds = time.perf_counter() - t0
+
+    def add(ref):
+        ref["figures_rows"]["fig11"] = rows
+        ref["figure_seconds"]["fig11"] = seconds
+        for k, v in sess.cells.items():  # fig4's offline and online_single cells are there already
+            assert ref["cells"].get(k, v) == v, k
+            ref["cells"][k] = v
+        ref["fig11_quick"] = {
+            "pretrain": c, "slots": {str(s): {"sha256": slot_params_sha256(e.params), "step": e.step,
+                                              "n_updates": e.n_updates, "last_acc": e.last_acc}
+                                     for s, e in sorted(table.slots.items())},
+            "pretrain_seconds": pretrain_s}
+
+    _add_keys(OUT / "figures_quick_ref.json", add)
+    print(json.dumps({"fig11": rows, "seconds": seconds, "pretrain_seconds": pretrain_s}))
 
 
 FAULT_TOLERANCE = {"scale": 1.0, "cap": 60_000, "hotspot_oversub": 1.5, "atax_oversub": 1.5,
@@ -1576,7 +1795,7 @@ def _export_fault_tolerance(tmp: Path) -> None:
                         "bytes": log.stat().st_size, "trace_sha256": trace_sha256(hot),
                         "read_back_sha256": trace_sha256(back)}
     out["seconds"] = time.perf_counter() - t_start
-    (OUT / "fault_tolerance_ref.json").write_text(json.dumps(out, indent=1) + "\n")
+    _write_compact(OUT / "fault_tolerance_ref.json", out)
     print(json.dumps({"seconds": out["seconds"], "chaos_seed": out["chaos"]["schedule"]["seed"],
                       "mux_chaos_seed": mux["chaos"]["schedule"]["seed"], "plugins": stats}))
 
@@ -1671,7 +1890,7 @@ def _export_cli(tmp: Path) -> None:
         "run_ours_model": ours.model.key,
     }
     out["seconds"] = time.perf_counter() - t_start
-    (OUT / "cli_quick_ref.json").write_text(json.dumps(out, indent=1) + "\n")
+    _write_compact(OUT / "cli_quick_ref.json", out)
     print(json.dumps({"seconds": out["seconds"], "keys": {k: v for k, v in out["keys"].items() if "cells" not in k
                                                           and k != "sweep_lines"}}))
 
@@ -1694,7 +1913,17 @@ def main() -> None:
     ap.add_argument("--fault-tolerance", action="store_true", help="write fault_tolerance_ref.json (and nothing "
                     "else)")
     ap.add_argument("--cli", action="store_true", help="write cli_quick_ref.json (and nothing else)")
+    ap.add_argument("--quick-table7", action="store_true", help="write pretrain_quick_s321.npz and add Table VII's "
+                    "rows and cells to tables_quick_ref.json (and nothing else)")
+    ap.add_argument("--quick-fig11", action="store_true", help="add Fig. 11's rows and cells and its table's "
+                    "fingerprint to figures_quick_ref.json (and nothing else)")
     args = ap.parse_args()
+    if args.quick_table7:
+        export_quick_table7()
+        return
+    if args.quick_fig11:
+        export_quick_fig11()
+        return
     if args.cli:
         export_cli()
         return
@@ -1750,7 +1979,7 @@ def main() -> None:
         "full": _recorded_run(trace, table.clone(), 1.5),
         f"first_{CUT_GROUPS}_groups": _recorded_run(trace.slice(0, CUT_GROUPS * GROUP), table.clone(), 1.5),
     }
-    (OUT / "hotspot_paper_ref.json").write_text(json.dumps(ref, indent=1) + "\n")
+    _write_compact(OUT / "hotspot_paper_ref.json", ref)
     print(json.dumps({k: ref["full"][k] for k in ("stats", "top1", "n_gate_open", "patterns")}))
 
 

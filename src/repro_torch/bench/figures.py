@@ -52,7 +52,7 @@ def fig3(ctx: Context) -> list[dict]:
             ref = ipc if ref is None else ref
             r[f"slowdown_{os_}"] = round(1 - ipc / ref, 4)
         rows.append(r)
-    emit("fig3_slowdown", rows, t0)
+    emit("fig3_slowdown", rows, t0, ctx.out_dir)
     return rows
 
 
@@ -67,7 +67,7 @@ def fig4(ctx: Context, benches=None) -> list[dict]:
             "benchmark": b, "online_top1": round(on.top1, 3), "offline_top1": round(off.top1, 3),
             "gap": round(off.top1 - on.top1, 3), "n_classes": on.n_classes,
         })
-    emit("fig4_online_offline", rows, t0)
+    emit("fig4_online_offline", rows, t0, ctx.out_dir)
     return rows
 
 
@@ -82,7 +82,7 @@ def fig6(ctx: Context) -> list[dict]:
         "online_multi": round(ctx.protocol(b, "online_multi").top1, 3),
         "online_single": round(ctx.protocol(b, "online_single").top1, 3),
     }]
-    emit("fig6_multimodel", rows, t0)
+    emit("fig6_multimodel", rows, t0, ctx.out_dir)
     return rows
 
 
@@ -97,7 +97,7 @@ def fig10(ctx: Context, benches=None) -> list[dict]:
             r[kind] = round(ctx.protocol(b, "online_single", kind=kind).top1, 3)
         r["derived"] = "transformer_best" if r["transformer"] >= max(r["lstm"], r["cnn"], r["mlp"]) - 0.02 else "see_row"
         rows.append(r)
-    emit("fig10_model_zoo", rows, t0)
+    emit("fig10_model_zoo", rows, t0, ctx.out_dir)
     return rows
 
 
@@ -120,7 +120,7 @@ def fig11(ctx: Context, benches=None) -> list[dict]:
             "offline": round(off, 3),
             "derived": f"ours_gain={ours - on:+.3f}",
         })
-    emit("fig11_normalized_acc", rows, t0)
+    emit("fig11_normalized_acc", rows, t0, ctx.out_dir)
     return rows
 
 
@@ -138,7 +138,7 @@ def fig12(ctx: Context) -> list[dict]:
             "with_term_top1": round(w.top1, 3),
             "without_term_top1": round(wo.top1, 3),
         })
-    emit("fig12_thrash_term", rows, t0)
+    emit("fig12_thrash_term", rows, t0, ctx.out_dir)
     return rows
 
 
@@ -158,7 +158,7 @@ def fig13(ctx: Context, benches=None) -> list[dict]:
             means.setdefault(us, []).append(ipc / smart_ipc)
         rows.append(r)
     rows.insert(0, {"benchmark": "MEAN", **{f"norm_ipc_{u}us": round(float(np.mean(v)), 3) for u, v in means.items()}})
-    emit("fig13_overhead", rows, t0)
+    emit("fig13_overhead", rows, t0, ctx.out_dir)
     return rows
 
 
@@ -174,7 +174,7 @@ def fig14(ctx: Context, benches=None) -> list[dict]:
             ipc = ours.ipc(pred_overhead_us=1.0)
             r[f"norm_ipc_{os_}"] = round(ipc / smart_ipc, 3)
         rows.append(r)
-    emit("fig14_ipc", rows, t0)
+    emit("fig14_ipc", rows, t0, ctx.out_dir)
     return rows
 
 

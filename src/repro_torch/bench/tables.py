@@ -39,9 +39,12 @@ reference's runner); at the ``quick`` preset the JAX package's own memo of
 (``pretrain_0e86a9ef3a27bb0d.pkl``, read by :func:`repro_torch.uvm.
 runtime.pretrain_table`'s ``memo_dir``).  Table VII's ``ours`` starts from
 its own Section V-A table (``PretrainSpec(scale=0.6, seed0=321)``:
-``experiments/torch/pretrain_paper_s321.npz``), its ``online_single`` from
+``experiments/torch/pretrain_paper_s321.npz``; at ``quick``
+``PretrainSpec(scale=0.24, seed0=321)``:
+``experiments/torch/pretrain_quick_s321.npz``), its ``online_single`` from
 fresh weights; Fig. 11's chain from ``seed0=123``'s
-(``experiments/torch/pretrain_paper_s123.npz``); neither has a quick copy.
+(``experiments/torch/pretrain_paper_s123.npz``), which has no quick copy:
+at ``quick`` it raises (ROADMAP A1).
 
 A slot that a table lacks, and the ``offline`` protocol's one model, start
 from the JAX package's initial weights as :mod:`repro_torch.random` draws
@@ -54,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import csv
 import dataclasses
 import json
 import time
@@ -75,7 +79,8 @@ from repro_torch.uvm import simulator as S
 from repro_torch.uvm import timing
 from repro_torch.uvm import trace as T
 from repro_torch.uvm import zoo as Z
-from repro_torch.uvm.api.session import ALL_BENCH, FEATURED, MEMO_DIR, PAPER_TABLES, Session, pretrained_table
+from repro_torch.uvm.api.session import (ALL_BENCH, FEATURED, MEMO_DIR, PAPER_TABLES, QUICK_TABLES, Session,
+                                          pretrained_table)
 from repro_torch.uvm.api.specs import PRETRAIN_BENCHES, SCALE_PRESETS, TENANCIES, PretrainSpec, QosSpec, QosTierSpec
 from repro_torch.uvm.uvmsmart import run_uvmsmart
 
@@ -87,6 +92,8 @@ PAPER_TABLE = PAPER_TABLES[777]
 PAPER_TABLE_S321 = PAPER_TABLES[321]
 #: Fig. 11's chain table: the paper preset's recipe with ``seed0=123``
 PAPER_TABLE_S123 = PAPER_TABLES[123]
+#: Table VII's ``ours`` table at the quick preset (``seed0=321``)
+QUICK_TABLE_S321 = QUICK_TABLES[321]
 #: the JAX package's initial weights of the fresh slots of Tables VII and
 #: VIII and of the figures
 PAPER_FRESH = EXPERIMENTS / "init_paper_slots.npz"
@@ -130,19 +137,24 @@ class Context:
     defaults to the preset's Section V-A recipe (:meth:`pretrain`:
     ``PAPER_TABLE`` at the ``paper`` preset, the JAX package's memo in
     ``memo_dir`` at ``quick``).  ``table7`` is Table VII's
-    (``PAPER_TABLE_S321`` at ``paper``), ``fig11`` Fig. 11's
-    (``PAPER_TABLE_S123``); at ``quick`` both raise without an argument.
+    (``PAPER_TABLE_S321`` at ``paper``, ``QUICK_TABLE_S321`` at
+    ``quick``), ``fig11`` Fig. 11's (``PAPER_TABLE_S123``; at ``quick`` it
+    raises without an argument).
     ``fresh`` (a mapping slot -> params, or an ``.npz`` of them) gives the
     initial weights of slots a table lacks, of ``protocol``'s fresh tables
     and of the ``offline`` protocol's model (slot ``tcfg.seed``); ``None``
     draws the JAX package's through :mod:`repro_torch.random`.  ``pcfg``
-    (the predictor) and ``tcfg`` (the schedule) are the preset's."""
+    (the predictor) and ``tcfg`` (the schedule) are the preset's.
+    ``out_dir``: where each table and figure also writes its rows as
+    ``<name>.csv`` (default: nowhere)."""
 
     def __init__(self, preset: str = "paper", *, benches: list | None = None, frozen: bool = False,
                  table: ModelTable | str | Path | None = None, table7: ModelTable | str | Path | None = None,
                  fig11: ModelTable | str | Path | None = None, fresh: dict | str | Path | None = None,
-                 memo_dir: str | Path | None = MEMO_DIR, device: str | torch.device = "cuda"):
+                 memo_dir: str | Path | None = MEMO_DIR, out_dir: str | Path | None = None,
+                 device: str | torch.device = "cuda"):
         self.preset = preset
+        self.out_dir = out_dir
         self.scale, self.cap = SCALE_PRESETS[preset]
         self.benches = list(benches) if benches is not None else list(ALL_BENCH)
         self.device = resolve_device(device)
@@ -242,14 +254,14 @@ class Context:
     def pretrained(self, which: str = "ours") -> ModelTable:
         """A fresh copy of a pretrained table (fine-tuning changes it):
         ``ours``'s, ``"table7"``'s or ``"fig11"``'s, the one passed for it or
-        else its recipe's (:meth:`pretrain` with ``seed0`` 777, 321 or 123)."""
+        else its recipe's (:meth:`pretrain` with ``seed0`` 777, 321 or 123;
+        at ``quick`` Fig. 11's raises, having no committed copy)."""
         src = self._tables[which]
         if src is None:
-            if which != "ours" and self.preset != "paper":
-                name, seed0 = {"table7": ("Table VII", 321), "fig11": ("Fig. 11", 123)}[which]
+            if which == "fig11" and self.preset != "paper":
                 raise NotImplementedError(
-                    f"the {self.preset!r} preset's {name} table (the reference's Section V-A pretrain with "
-                    f"seed0={seed0}) has no committed copy (ROADMAP A1); pass {which}=")
+                    f"the {self.preset!r} preset's Fig. 11 table (the reference's Section V-A pretrain with "
+                    f"seed0=123) has no committed copy (ROADMAP A1); pass fig11=")
             return self.pretrain(seed0={"ours": 777, "table7": 321, "fig11": 123}[which])
         if which not in self._masters:
             self._masters[which] = (src if isinstance(src, ModelTable)
@@ -302,9 +314,17 @@ class Context:
         return [self.protocol(w, mode, table=table) for w in workloads]
 
 
-def emit(name: str, rows: list[dict], t0: float) -> None:
+def emit(name: str, rows: list[dict], t0: float, out_dir: Path | None = None) -> None:
     """Print the reference's ``name,us_per_call,derived`` line, then one
-    JSON object per row."""
+    JSON object per row; with ``out_dir``, also write the rows to
+    ``out_dir/<name>.csv`` with the reference's columns (those of the first
+    row, as ``benchmarks/common.py``'s ``emit`` writes them)."""
+    if out_dir is not None and rows:
+        Path(out_dir).mkdir(parents=True, exist_ok=True)
+        with (Path(out_dir) / f"{name}.csv").open("w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=list(rows[0].keys()))
+            w.writeheader()
+            w.writerows(rows)
     us = (time.time() - t0) * 1e6 / max(len(rows), 1)
     derived = rows[0].get("derived", "") if rows else ""
     print(f"{name},{us:.0f},{derived}")
@@ -324,7 +344,7 @@ def table1(ctx: Context) -> list[dict]:
             "uvmsmart": ctx.uvmsmart(b)["pages_thrashed"],
             "d_belady": ctx.sim(b, "belady", "demand")["pages_thrashed"],
         })
-    emit("table1_thrashing", rows, t0)
+    emit("table1_thrashing", rows, t0, ctx.out_dir)
     # the paper's structural claims
     for r in rows:
         assert r["d_belady"] <= r["d_hpe"] + 1e-9, r
@@ -339,7 +359,7 @@ def table2(ctx: Context) -> list[dict]:
         d = ctx.sim(b, "hpe", "demand")["pages_thrashed"]
         t = ctx.sim(b, "hpe", "tree")["pages_thrashed"]
         rows.append({"benchmark": b, "demand_hpe": d, "tree_hpe": t, "derived": f"collapse_x{t / max(d, 1):.0f}"})
-    emit("table2_hpe_prefetch", rows, t0)
+    emit("table2_hpe_prefetch", rows, t0, ctx.out_dir)
     return rows
 
 
@@ -354,7 +374,7 @@ def table3(ctx: Context) -> list[dict]:
             "benchmark": b, "phase0": p[0], "phase1": p[1], "phase2": p[2],
             "derived": f"growth_x{p[2] / max(p[0], 1):.1f}",
         })
-    emit("table3_delta_growth", rows, t0)
+    emit("table3_delta_growth", rows, t0, ctx.out_dir)
     # NW / Srad must grow; streaming must stay flat (paper's central premise)
     by = {r["benchmark"]: r for r in rows}
     assert by["NW"]["phase2"] > by["NW"]["phase0"]
@@ -379,7 +399,7 @@ def table4(ctx: Context) -> list[dict]:
             "benchmark": b, "params_mb": round(params_mb, 2), "acti_mb": acti_mb,
             "patterns": len(pats), "total_mb": round(total, 2),
         })
-    emit("table4_footprint", rows, t0)
+    emit("table4_footprint", rows, t0, ctx.out_dir)
     return rows
 
 
@@ -405,7 +425,7 @@ def table6(ctx: Context) -> list[dict]:
     avg_red = float(np.mean(reductions)) if reductions else 0.0
     rows.insert(0, {"benchmark": "AVG_REDUCTION_VS_BASELINE", "baseline": "", "tree_hpe": "",
                     "uvmsmart": "", "ours": round(avg_red, 3), "demand_hpe": "", "demand_belady": ""})
-    emit("table6_thrashing_full", rows, t0)
+    emit("table6_thrashing_full", rows, t0, ctx.out_dir)
     return rows
 
 
@@ -425,7 +445,7 @@ def table7(ctx: Context) -> list[dict]:
             "workloads": f"{a}+{b}", "online_top1": round(online.top1, 3),
             "ours_top1": round(ours.top1, 3), "derived": f"delta={ours.top1 - online.top1:+.3f}",
         })
-    emit("table7_multiworkload", rows, t0)
+    emit("table7_multiworkload", rows, t0, ctx.out_dir)
     return rows
 
 
@@ -456,7 +476,7 @@ def table8(ctx: Context) -> list[dict]:
         "workloads": "AVG_MUX_GAIN", "merged_top1": "", "mux_top1": "",
         "tenant0_top1": "", "tenant1_top1": "", "derived": f"delta={avg:+.3f}",
     })
-    emit("table8_concurrent_mux", rows, t0)
+    emit("table8_concurrent_mux", rows, t0, ctx.out_dir)
     # the reference's pin: per-tenant specialisation must not lose to the
     # merged baseline on average; say which pair moved it
     if avg < 0:
@@ -517,7 +537,7 @@ def table9(ctx: Context) -> list[dict]:
         "reclass256_top1": "", "reclass256_thrash": "", "switches": "", "reclass512_top1": "",
         "reclass512_thrash": "", "rule_thrash": "", "derived": f"dtop1={avg_t1:+.3f} dthrash={avg_thr:+.0f}",
     })
-    emit("table9_drift_reclass", rows, t0)
+    emit("table9_drift_reclass", rows, t0, ctx.out_dir)
     # the reference's drift claim: re-classification beats the frozen-pattern
     # manager on both metrics, never worse on a trace, better on average
     assert all(d >= 0 for d in d_top1) and avg_t1 > 0, rows
@@ -591,7 +611,7 @@ def table10(ctx: Context, scenarios=TABLE10_SCENARIOS) -> list[dict]:
         checks.append({"scenario": f"{good}+RandomScan", "solo": solo.stats["pages_thrashed"],
                        "shared": shared.per_tenant_stats["0"]["pages_thrashed"],
                        "budgeted": budgeted.per_tenant_stats["0"]["pages_thrashed"]})
-    emit("table10_qos_fairness", rows, t0)
+    emit("table10_qos_fairness", rows, t0, ctx.out_dir)
     # the reference's fairness claim: budgets keep the well-behaved tenant
     # whole, no worse than alone and than the shared pool gave it
     for c in checks:

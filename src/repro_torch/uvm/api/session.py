@@ -38,6 +38,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.configs.predictor_paper import CONFIG as PCFG_PAPER
+from repro_torch.configs.predictor_paper import CONFIG_QUICK as PCFG_QUICK
 from repro_torch.core.incremental import RunResult, TrainConfig, run_protocol
 from repro_torch.core.model_table import ModelTable
 from repro_torch.device import resolve_device
@@ -79,6 +80,24 @@ MEMO_DIR = EXPERIMENTS / "cache"
 PAPER_TABLES = {777: EXPERIMENTS / "torch" / "pretrain_paper.npz",
                 321: EXPERIMENTS / "torch" / "pretrain_paper_s321.npz",
                 123: EXPERIMENTS / "torch" / "pretrain_paper_s123.npz"}
+#: the committed exports of the quick preset's Section V-A tables, by
+#: ``seed0``: Table VII's (the quick ``ours`` table is the JAX package's
+#: memo in ``MEMO_DIR``; Fig. 11's, ``seed0=123``, is not committed)
+QUICK_TABLES = {321: EXPERIMENTS / "torch" / "pretrain_quick_s321.npz"}
+
+
+def _export_of(pspec: PretrainSpec, pcfg, train: TrainConfig, kind: str) -> Path | None:
+    """The committed export of a recipe, if it is exactly the paper
+    preset's (``CONFIG``, ``PAPER_TRAIN``, scale ``1.0 * 0.6``) or the quick
+    preset's (``CONFIG_QUICK``, ``TrainSpec()``, scale ``0.4 * 0.6``) over
+    the default corpus in two rounds, with a ``seed0`` that has one."""
+    presets = ((PAPER_TABLES, PCFG_PAPER, PAPER_TRAIN, 1.0), (QUICK_TABLES, PCFG_QUICK, TrainSpec(), 0.4))
+    for exports, preset_pcfg, preset_train, scale in presets:
+        recipe = PretrainSpec(benchmarks=PRETRAIN_BENCHES, scale=scale * 0.6, seed0=pspec.seed0, max_rounds=2)
+        if (pspec.seed0 in exports and pspec == recipe
+                and (pcfg, train, kind) == (preset_pcfg, preset_train.to_train_config(), "transformer")):
+            return exports[pspec.seed0]
+    return None
 
 
 def pretrained_table(pspec: PretrainSpec, pcfg, train: TrainConfig, kind: str = "transformer", *,
@@ -86,15 +105,14 @@ def pretrained_table(pspec: PretrainSpec, pcfg, train: TrainConfig, kind: str = 
                      device: str | torch.device = "cuda") -> ModelTable:
     """The Section V-A table of one recipe, a master that callers clone per
     use.  The paper preset's recipe (``CONFIG``, ``PAPER_TRAIN``, the
-    default corpus at scale 0.6, two rounds) with ``seed0`` 777, 321 or 123
-    loads the committed export (``PAPER_TABLES``: params and AdamW moments;
-    ``fresh`` gives the slots it lacks); any other recipe loads the JAX
-    package's memo of it from ``memo_dir`` where there is one, else
-    pretrains here."""
-    export = PAPER_TABLES.get(pspec.seed0)
-    if (export is not None and (pcfg, train, kind) == (PCFG_PAPER, PAPER_TRAIN.to_train_config(), "transformer")
-            and pspec == PretrainSpec(benchmarks=PRETRAIN_BENCHES, scale=1.0 * 0.6, seed0=pspec.seed0,
-                                      max_rounds=2)):
+    default corpus at scale 0.6, two rounds) with ``seed0`` 777, 321 or 123,
+    and the quick preset's (``CONFIG_QUICK``, ``TrainSpec()``, scale 0.24)
+    with ``seed0`` 321, load the committed export (``PAPER_TABLES``,
+    ``QUICK_TABLES``: params and AdamW moments; ``fresh`` gives the slots it
+    lacks); any other recipe loads the JAX package's memo of it from
+    ``memo_dir`` where there is one, else pretrains here."""
+    export = _export_of(pspec, pcfg, train, kind)
+    if export is not None:
         return R.load_pretrained(export, pcfg, device, fresh=fresh)
     corpus = [T.BENCHMARKS[n](scale=pspec.scale, seed=pspec.seed0 + i) for i, n in enumerate(pspec.benchmarks)]
     return R.pretrain_table(corpus, pcfg, train, kind=kind, max_rounds=pspec.max_rounds, memo_dir=memo_dir,

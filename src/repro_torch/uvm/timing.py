@@ -40,3 +40,10 @@ def cycles(stats: dict, n_accesses: int, *, pred_overhead_us: float = 0.0, n_pre
 def ipc(stats: dict, n_accesses: int, **kw) -> float:
     return n_accesses * INSTR_PER_ACCESS / cycles(stats, n_accesses, **kw)
 
+
+
+def normalized_ipc(stats: dict, ref_stats: dict, n_accesses: int, **kw) -> float:
+    """IPC relative to a reference strategy on the same trace (``kw``, a
+    prediction overhead, is charged to ``stats`` only, as in the
+    reference)."""
+    return ipc(stats, n_accesses, **kw) / ipc(ref_stats, n_accesses)

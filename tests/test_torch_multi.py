@@ -492,8 +492,8 @@ def test_runner_names_the_concurrent_tables():
     assert [list(p) for p in PTAB.CONCURRENT_PAIRS] == [["StreamTriad", "2DCONV"], ["Hotspot", "Srad-v2"],
                                                          ["NW", "2DCONV"], ["ATAX", "Srad-v2"]]
     ctx = PTAB.Context("quick", device="cpu")
-    with pytest.raises(NotImplementedError, match="Table VII"):
-        ctx.pretrained("table7")
+    assert PTAB.QUICK_TABLE_S321.name == "pretrain_quick_s321.npz"
+    assert sorted(ctx.pretrained("table7").slots) == [0, 3]
     paper = PTAB.Context("paper", device="cpu")
     w = paper.concurrent(("NW", "2DCONV"), slice_len=2048)
     assert len(w) == len(paper.trace("NW")) + len(paper.trace("2DCONV")) and w.tenant_names == ("NW", "2DCONV")

@@ -79,6 +79,15 @@ def test_figures_entry_point_imports_no_jax():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_bench_driver_imports_no_jax():
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    child = _SERVE_CHILD.replace("import repro_torch.launch.serve", "import repro_torch.bench.run, "
+                                 "repro_torch.launch.serve")
+    out = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def test_figures_entry_point_defaults_to_the_card():
     from repro_torch.bench import figures
     from repro_torch.configs.predictor_paper import SMOKE

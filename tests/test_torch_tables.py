@@ -237,10 +237,12 @@ def test_runner_presets_and_quick_ours_raises():
     assert PTAB.STANDARD_CELLS == Session.STANDARD_CELLS
     ctx = PTAB.Context("quick", device="cpu")
     assert ctx.pcfg == PC.CONFIG_QUICK and (ctx.tcfg.group_size, ctx.tcfg.epochs, ctx.tcfg.batch_size) == (1024, 2, 128)
-    # the quick preset's ours starts from the JAX package's memo of its recipe
+    # the quick preset's ours starts from the JAX package's memo of its recipe,
+    # Table VII's from its committed export; Fig. 11's has no committed copy
     assert sorted(ctx.pretrained().slots) == [0, 3]
-    with pytest.raises(NotImplementedError, match="Table VII"):
-        ctx.pretrained("table7")
+    assert sorted(ctx.pretrained("table7").slots) == [0, 3]
+    with pytest.raises(NotImplementedError, match="Fig. 11"):
+        ctx.pretrained("fig11")
     paper = PTAB.Context("paper", frozen=True, device="cpu")
     assert paper.pcfg == PC.CONFIG and (paper.tcfg.group_size, paper.tcfg.epochs) == (2048, 0)
     assert paper.with_train(PI.TrainConfig()).tcfg.epochs == 3

@@ -176,9 +176,10 @@ def test_memo_keys_equal_jax_and_the_quick_preset_reads_its_memo():
     assert sorted(PTAB.Context("quick", device="cpu").pretrain(PC.CONFIG_QUICK, PTrainConfig(256, 2, 128),
                                                                 scale=0.24).slots) == [0, 3]
     assert sorted(p.name for p in MEMOS.iterdir()) == before  # read, never written
-    for which in ("table7", "fig11"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-            ctx.pretrained(which)
+    assert sorted(ctx.pretrained("table7").slots) == [0, 3]  # the committed export, not a memo
+    assert sorted(p.name for p in MEMOS.iterdir()) == before
+    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+        ctx.pretrained("fig11")
 
 
 def test_quick_preset_ours_equals_the_jax_package_from_the_memo():
