@@ -82,7 +82,9 @@ whose group has 1,824 of 2,048 samples flagged E∪T): the group's features, fla
 clipping), taken step by step with the package's own jitted
 ``train_step`` (equal to the scanned ``train_group`` to the last bit,
 checked), and the final params (632,066 float32).  It takes about 2.5
-minutes on a CPU (4 with other exports beside it) and writes 2.4 MB.
+minutes on a CPU (4 with other exports beside it) and writes 2.2 MB, its
+float32 arrays as byte planes (``_savez_planes``; ``chip_smoke.load_ref``
+reads them through ``convert.arrays_from_npz``).
 
     PYTHONPATH=src python scripts/export_torch_reference.py --serve-manager
 
@@ -409,10 +411,12 @@ def _ssd_interpret(x, dt, A_log, b, c, *, chunk, initial_state=None):
 
 
 def ssm_serve_reference(cfg, *, seed, prompt_seed, batch, prompt_len, n_new, offload, hbm_fraction,
-                        default_route=True) -> dict:
-    """One JAX engine run of an ssm-family model with every step recorded,
-    its SSD through ``ssd_pallas(interpret=True)``, and (``default_route``)
-    the default path's prefill beside it (see the module docstring)."""
+                        default_route=True, norm_axes=(3, 4)) -> dict:
+    """One JAX engine run of an ssm- or hybrid-family model with every step
+    recorded, its SSD through ``ssd_pallas(interpret=True)``, and
+    (``default_route``) the default path's prefill beside it (see the module
+    docstring).  The prefill's final SSM states (layer, row, head, P, N) are
+    recorded as their norms over ``norm_axes``."""
     import time
 
     import jax
@@ -429,7 +433,7 @@ def ssm_serve_reference(cfg, *, seed, prompt_seed, batch, prompt_len, n_new, off
     prompt = np.random.default_rng(prompt_seed).integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
 
     def state_norms(cache):
-        return np.sqrt(np.sum(np.square(np.asarray(cache["ssm"], np.float64)), axis=(3, 4))).astype(np.float32)
+        return np.sqrt(np.sum(np.square(np.asarray(cache["ssm"], np.float64)), axis=norm_axes)).astype(np.float32)
 
     default_ssd = ops.ssd
     ops.ssd = _ssd_interpret
@@ -485,6 +489,38 @@ def export_serve_mamba2() -> None:
     sgap = np.abs(ref["default_state_norm"] / ref["state_norm"] - 1)
     print(json.dumps({"first_tokens": ref["tokens"][:, :8].tolist(), "offload": json.loads(str(ref["offload_stats"])),
                       "routes_top8_ids_equal": bool(same.all()), "routes_max_logit_gap": float(gap.max()),
+                      "routes_max_state_norm_rel_gap": float(sgap.max()), "seconds": float(ref["seconds"]),
+                      "f32_first_tokens": ref["f32_tokens"][:, :8].tolist(), "f32_seconds": float(ref["f32_seconds"])}))
+
+
+SERVE_ZAMBA2 = {"arch": "zamba2-7b", "num_layers": 15, "seed": 0, "prompt_seed": 1, "batch": 2, "prompt_len": 512,
+                "n_new": 32, "offload": "learned", "hbm_fraction": 0.5, "f32_new": 16}
+
+
+def export_serve_zamba2() -> None:
+    import hashlib
+
+    import numpy as np
+
+    from repro.configs import get_config
+
+    cfg = get_config(SERVE_ZAMBA2["arch"]).replace(num_layers=SERVE_ZAMBA2["num_layers"])
+    kw = {k: v for k, v in SERVE_ZAMBA2.items() if k not in ("arch", "num_layers", "f32_new")}
+    ref = ssm_serve_reference(cfg, **kw, norm_axes=(2, 3, 4))
+    f32 = ssm_serve_reference(cfg.replace(dtype="float32"), **{**kw, "n_new": SERVE_ZAMBA2["f32_new"]},
+                              default_route=False, norm_axes=(2, 3, 4))
+    ref.update({f"f32_{k}": v for k, v in f32.items() if k not in ("prompt", "offload_stats")})
+    prompt = ref.pop("prompt")
+    ref["prompt_sha256"] = np.array(hashlib.sha256(np.ascontiguousarray(prompt, np.int32).tobytes()).hexdigest())
+    OUT.mkdir(parents=True, exist_ok=True)
+    path = OUT / "serve_zamba2_ref.npz"
+    np.savez_compressed(path, run=np.array(json.dumps(SERVE_ZAMBA2)), **ref)
+    same = ref["default_top_ids"] == ref["top_ids"][0]
+    gap = np.abs(ref["default_top_logits"] - ref["top_logits"][0])[same]
+    sgap = np.abs(ref["default_state_norm"] / ref["state_norm"] - 1)
+    print(json.dumps({"bytes": path.stat().st_size, "first_tokens": ref["tokens"][:, :8].tolist(),
+                      "offload": json.loads(str(ref["offload_stats"])),
+                      "routes_top8_ids_equal": bool(same.all()), "routes_max_logit_gap": float(gap.max(initial=0)),
                       "routes_max_state_norm_rel_gap": float(sgap.max()), "seconds": float(ref["seconds"]),
                       "f32_first_tokens": ref["f32_tokens"][:, :8].tolist(), "f32_seconds": float(ref["f32_seconds"])}))
 
@@ -709,9 +745,11 @@ def export_train() -> None:
     arrays = {f"group/{f}": np.asarray(getattr(fs, f)) for f in ("page", "delta", "pc", "tb", "label", "label_page",
                                                                   "t_index")}
     arrays.update({f"final/{k}": v.astype(np.float32) for k, v in final.items()})
-    np.savez_compressed(OUT / "train_hotspot_ref.npz", run=np.array(json.dumps(meta)), in_et=g["in_et"],
-                        step_loss=np.array(step_loss, np.float32), step_grad_norm=np.array(step_gnorm, np.float32),
-                        per_group_acc=np.array(run["per_group_acc"], np.float64), **arrays)
+    # float32 arrays as byte planes (``convert.arrays_from_npz`` reads them): 0.21 MB less than deflate
+    _savez_planes(OUT / "train_hotspot_ref.npz", {
+        "run": np.array(json.dumps(meta)), "in_et": g["in_et"], "step_loss": np.array(step_loss, np.float32),
+        "step_grad_norm": np.array(step_gnorm, np.float32),
+        "per_group_acc": np.array(run["per_group_acc"], np.float64), **arrays})
     print(json.dumps({k: v for k, v in meta.items()}))
 
 
@@ -1903,6 +1941,7 @@ def main() -> None:
                     "and the figure runs' slots in init_paper_slots.npz (and nothing else)")
     ap.add_argument("--serve", action="store_true", help="write serve_qwen2_ref.npz (and nothing else)")
     ap.add_argument("--serve-mamba2", action="store_true", help="write serve_mamba2_ref.npz (and nothing else)")
+    ap.add_argument("--serve-zamba2", action="store_true", help="write serve_zamba2_ref.npz (and nothing else)")
     ap.add_argument("--train", action="store_true", help="write train_hotspot_ref.npz (and nothing else)")
     ap.add_argument("--serve-manager", action="store_true", help="write serve_manager_ref.npz (and nothing else)")
     ap.add_argument("--tables", action="store_true", help="write tables_paper_ref.json (and nothing else)")
@@ -1953,6 +1992,9 @@ def main() -> None:
         return
     if args.serve_mamba2:
         export_serve_mamba2()
+        return
+    if args.serve_zamba2:
+        export_serve_zamba2()
         return
     if args.cache_dir is None:
         os.environ["REPRO_PRETRAIN_CACHE"] = "0"

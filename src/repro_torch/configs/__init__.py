@@ -11,14 +11,15 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig  # noqa: F401
 _MODULES = {
     "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
+    "granite-3-8b": "repro_torch.configs.granite_3_8b",
     "predictor-paper": "repro_torch.configs.predictor_paper",
 }
 
 # The JAX package's other architectures (``repro.configs._MODULES``) and the
-# ROADMAP item that ports each: the hybrid family (zamba2) with the LM zoo's
-# item A6(b), the others with the rest of A6.
-NOT_PORTED = {"zamba2-7b": "A6(b)", **dict.fromkeys(("whisper-medium", "olmoe-1b-7b", "qwen2-moe-a2.7b", "qwen3-0.6b",
-                                                   "granite-3-8b", "qwen1.5-4b", "internvl2-26b"), "A6")}
+# ROADMAP item that ports each: the rest of the LM zoo, A6(c).
+NOT_PORTED = dict.fromkeys(("whisper-medium", "olmoe-1b-7b", "qwen2-moe-a2.7b", "qwen3-0.6b", "internvl2-26b"), "A6(c)")
 
 
 def _module(name: str):

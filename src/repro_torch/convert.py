@@ -128,6 +128,14 @@ def _from_planes(a: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.moveaxis(a, 0, -1)).view("<f4")[..., 0]
 
 
+def arrays_from_npz(path: str | Path) -> dict[str, np.ndarray]:
+    """Every array of an ``.npz``, a float32 array stored as its byte planes
+    read back bit for bit (``_from_planes``; such a file holds no other
+    uint8 array)."""
+    with np.load(path) as z:
+        return {k: _from_planes(z[k]) for k in z.files}
+
+
 def blob_from_npz(path: str | Path) -> dict:
     """The host blob stored in an ``.npz`` of ``slot<s>/<param key>`` arrays
     plus ``slot<s>/{step,n_updates,last_acc}`` and ``n_slots``, and where a

@@ -14,7 +14,8 @@
 // D 64, T 2048, bf16) a call reads about 2 * B * kv_len * K * D * 2 bytes,
 // about 2 MB at kv_len 2048 (under a microsecond at 3.35 TB/s), so latency
 // bounds it: the work has to be spread over the SMs and the dependent steps
-// kept few.  Design: the cache is cut into chunks of 64 keys, and each of
+// kept few.  At zamba2-7b's (B 2, K 32, G 1, D 112, T 544) a call reads
+// 15.6 MB (0.0047 ms).  Design: the cache is cut into chunks of 64 keys, and each of
 // the two kernels runs one block of 256 threads per (chunk, batch, kv head),
 // 128 blocks at the serve shape.
 //   1. decode_scores_kernel: four threads per key, each for every fourth of
@@ -31,6 +32,10 @@
 //      finish, picked by an integer atomic ticket, combines the partials in
 //      chunk order with factors exp(M_j - M_final) (the product of the
 //      reference's rescalings) and writes the output.
+// Head widths 16, 32, 64, 112 (zamba2-7b's) and 128: a key row is D * size /
+// 16 loads of 16 bytes in pass 1 (14 in bf16, 28 in float32 at D 112), and
+// pass 2 splits the block into 256 / D key slices of D threads (two at D 112,
+// the last 32 threads idle there).
 // No float atomics: every sum is taken in one fixed order, so a call repeats
 // bit for bit.  Against the reference only float32 summation order differs.
 // Chunks wholly at or past kv_len are not launched (their p is 0 and they
@@ -175,7 +180,7 @@ template <typename E, int D>
 __global__ void __launch_bounds__(kThreads)
 decode_pv_kernel(const E* __restrict__ v, E* __restrict__ o, Scratch sc, int T, int K, int G, int n_chunks,
                  int n_act) {
-  constexpr int kSlices = kThreads / D;  // key slices of the P.V step
+  constexpr int kSlices = kThreads / D;  // key slices of the P.V step (2 at D 112: threads 224-255 idle in it)
   extern __shared__ float smem[];
   float* m_s = smem;                     // M_j per query row, then l
   float* pr = m_s + kMaxG;               // p rounded (G, kChunk)
@@ -188,8 +193,10 @@ decode_pv_kernel(const E* __restrict__ v, E* __restrict__ o, Scratch sc, int T, 
   const int b = bk / K, kh = bk % K;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // this thread's values (head dim d, keys slice + kSlices * i), loaded
-  // first so that their latency overlaps the softmax step
+  // first so that their latency overlaps the softmax step; where D does not
+  // divide the block, the threads past kSlices * D take no part
   const int d = tid % D, slice = tid / D;
+  const bool in_pv = slice < kSlices;
   const int n = min(kChunk, T - c * kChunk);
   const long long row_stride = (long long)K * D;
   const E* vc = v + ((long long)b * T + c * kChunk) * row_stride + (long long)kh * D + d;
@@ -197,7 +204,7 @@ decode_pv_kernel(const E* __restrict__ v, E* __restrict__ o, Scratch sc, int T, 
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int kk = slice + kSlices * i;
-    vv[i] = kk < n ? to_f(vc[kk * row_stride]) : 0.f;
+    vv[i] = in_pv && kk < n ? to_f(vc[kk * row_stride]) : 0.f;
   }
   const float* cmax = sc.cmax + (long long)bk * G * n_chunks;
   // M_j: the prefix max of the chunk maxima up to the end of this chunk's 512-key block
@@ -236,7 +243,7 @@ decode_pv_kernel(const E* __restrict__ v, E* __restrict__ o, Scratch sc, int T, 
     }
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) red[(slice * G + g) * D + d] = part[g];
+      if (in_pv && g < G) red[(slice * G + g) * D + d] = part[g];
     }
   }
   __syncthreads();
@@ -329,6 +336,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* scratch, 
     case 16: return launch_d<E, 16>(qq, kk, vv, oo, sc, scratch_bytes, B, T, K, G, kv_len, scale, st);
     case 32: return launch_d<E, 32>(qq, kk, vv, oo, sc, scratch_bytes, B, T, K, G, kv_len, scale, st);
     case 64: return launch_d<E, 64>(qq, kk, vv, oo, sc, scratch_bytes, B, T, K, G, kv_len, scale, st);
+    case 112: return launch_d<E, 112>(qq, kk, vv, oo, sc, scratch_bytes, B, T, K, G, kv_len, scale, st);
     case 128: return launch_d<E, 128>(qq, kk, vv, oo, sc, scratch_bytes, B, T, K, G, kv_len, scale, st);
     default: return -1;
   }

@@ -13,14 +13,17 @@
 // per SM, and after one round of global loads the SM's instruction issue is
 // what they share: a warp with ten busy lanes costs as much to issue as one
 // with 32.  No tensor cores: the reference computes in float32 and TF32
-// would round the scores, so the products are full float32 FMAs.
+// would round the scores, so the products are full float32 FMAs.  At
+// zamba2-7b's float32 prefill (B 2, S = T = 512, K 32, G 1, D 112, causal)
+// it is about 3.8 GFLOP, so operations bound it (0.056 ms at 67 TFLOP/s);
+// this design, made for ten-key rows, walks every key tile of a row.
 //
 // Design: one thread block per (batch, kv head, tile of query rows): 64
-// (s, g) rows at D <= 16, 32 at D 32, 16 at 64, 8 at 128.  Per tile of 32
-// keys, one round of global loads (the tile's K and V and, with the first
-// tile, the block's scaled q rows) into shared memory, each 16-byte chunk of
-// a row rotated by the row's index so that threads reading different rows
-// hit different banks; then two passes with the lanes kept busy:
+// (s, g) rows at D <= 16, 32 at D 32, 16 at 64, 9 at 112, 8 at 128.  Per
+// tile of 32 keys, one round of global loads (the tile's K and V and, with
+// the first tile, the block's scaled q rows) into shared memory, each 16-byte
+// chunk of a row rotated by the row's index so that threads reading different
+// rows hit different banks; then two passes with the lanes kept busy:
 //   1-2. each row's keys on neighbouring lanes of one warp (three rows of ten
 //        keys per warp at the predictor's shape): a lane scores its key, one
 //        in-order fmaf chain over d on the scaled query (a masked key is
@@ -33,6 +36,16 @@
 // That is the serial kernel's arithmetic (one thread per row, keys in
 // order), expression for expression, so the output is the same bit for bit;
 // only the parallelism changed.  S and T need not be multiples of any tile.
+//
+// Head widths 8, 16, 32, 64, 112 (zamba2-7b's) and 128.  The rotation is an
+// XOR of the chunk index with the row's, so a row of q and k holds the next
+// power of two of D / 4 chunks: at D 112, 28 chunks in rows of 32, the last
+// four never written or read (the rotation maps 0..27 into 0..31 one to one).
+// Pass 1-2's reads are then as free of bank conflicts as at D 128: eight
+// lanes reading chunk c of eight consecutive keys hit eight distinct 16-byte
+// slots of a 128-byte line.  At D 112 that costs 12.5% more shared memory for
+// q and k, and a score's chain runs in groups of 7 chunks (a divisor of 28)
+// with the same fmaf order.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -56,10 +69,26 @@ __host__ __device__ constexpr int rows_per_block() {
   return kMaxThreads / (D / 4) < 64 ? kMaxThreads / (D / 4) : 64;
 }
 
+// 16-byte chunks a row of q or k takes in shared memory: D / 4 rounded up to a power of two
+template <int D>
+__host__ __device__ constexpr int padded_chunks() {
+  int n = 1;
+  while (n < D / 4) n *= 2;
+  return n;
+}
+
+// chunks loaded ahead of the score's chain: the largest divisor of D / 4 up to 8
+template <int D>
+__host__ __device__ constexpr int chain_group() {
+  int g = D / 4 < 8 ? D / 4 : 8;
+  while ((D / 4) % g) --g;
+  return g;
+}
+
 // where chunk c of row i is stored: rotated by the row
 template <int D>
 __device__ __forceinline__ int rot(int i, int c) {
-  return (c ^ i) & (D / 4 - 1);
+  return (c ^ i) & (padded_chunks<D>() - 1);
 }
 
 // kVec: q, k, v and o are 16-byte aligned, so rows move as float4
@@ -68,10 +97,11 @@ __global__ void __launch_bounds__(kMaxThreads)
 fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
               float* __restrict__ o, const FaArgs a, int n_rt) {
   constexpr int kC = D / 4;
-  constexpr int kG = kC < 8 ? kC : 8;  // chunks loaded ahead of the score's chain
+  constexpr int kCP = padded_chunks<D>();
+  constexpr int kG = chain_group<D>();  // chunks loaded ahead of the score's chain
   constexpr int kRB = rows_per_block<D>();
-  __shared__ float4 qs[kRB][kC];  // scaled queries, chunks rotated by row
-  __shared__ float4 ks[kBT][kC];  // chunks rotated by key
+  __shared__ float4 qs[kRB][kCP];  // scaled queries, chunks rotated by row
+  __shared__ float4 ks[kBT][kCP];  // chunks rotated by key
   __shared__ float4 vs[kBT][kC];
   __shared__ float2 pa[kRB][kBT + 1];  // (p, alpha) per key
   __shared__ float mrun[2][kRB];       // each row's max at the tile's start, by tile parity
@@ -228,6 +258,7 @@ extern "C" int repro_flash_attention_f32(const void* q, const void* k, const voi
     case 16: return launch<16>(qq, kk, vv, oo, a, st);
     case 32: return launch<32>(qq, kk, vv, oo, a, st);
     case 64: return launch<64>(qq, kk, vv, oo, a, st);
+    case 112: return launch<112>(qq, kk, vv, oo, a, st);
     case 128: return launch<128>(qq, kk, vv, oo, a, st);
     default: return -1;
   }

@@ -17,7 +17,8 @@
 // What bounds it on an H100: at the serving prefill (B 2, S = T = 1792, K 2,
 // G 7, D 64, causal) the causal function is about 11.5 GFLOP of bf16 MMA
 // and about 5 MB of traffic, so operations bound it (0.0116 ms at 989
-// TFLOP/s).  Design:
+// TFLOP/s); at zamba2-7b's (B 2, S = T = 512, K 32, G 1, D 112, causal) it
+// is 3.8 GFLOP and 29.4 MB, so bytes do (0.0088 ms at 3.35 TB/s).  Design:
 //   - GQA: the (s, g) rows of one (batch, kv head) are taken in q's own order
 //     (row s * G + g) and cut into tiles of 64 rows, the M of one wgmma, with
 //     no padding but at the end; a tile may start and end inside a query
@@ -47,7 +48,12 @@
 //     kv_len (for a skipped tile p would be 0 and the rescaling 1, so this is
 //     exact); a tile with a row that sees no key (kv_len 0, or a negative
 //     causal position) walks all of T, as the reference does.
-// Head widths 16, 32, 64 and 128 (the MMA's K step is 16 values).
+// Head widths 16, 32, 64, 112 (zamba2-7b's) and 128: the MMA's K step is 16
+// values and P.V's N is D, any multiple of 8.  Nothing in the layout needs a
+// power of two: a row is D / 8 core-matrix columns (14 at D 112), a group of
+// eight rows D * 16 bytes (1,792), and the descriptors' strides are those
+// byte counts.  At D 112 a block takes 114,688 bytes of shared memory (q
+// 28,672, three stages of keys and values 86,016), two blocks to an SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -154,6 +160,16 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<112>(float (&d)[56], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
@@ -412,6 +428,7 @@ extern "C" int repro_flash_attention_bf16(const void* q, const void* k, const vo
     case 16: return launch<16>(q, k, v, o, B, S, T, K, G, causal, q_offset, kv_len, scale, st);
     case 32: return launch<32>(q, k, v, o, B, S, T, K, G, causal, q_offset, kv_len, scale, st);
     case 64: return launch<64>(q, k, v, o, B, S, T, K, G, causal, q_offset, kv_len, scale, st);
+    case 112: return launch<112>(q, k, v, o, B, S, T, K, G, causal, q_offset, kv_len, scale, st);
     case 128: return launch<128>(q, k, v, o, B, S, T, K, G, causal, q_offset, kv_len, scale, st);
     default: return -1;
   }

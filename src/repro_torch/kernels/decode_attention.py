@@ -4,7 +4,8 @@ Port of ``repro.kernels.decode_attention`` (TPU kernel
 ``decode_attention_kernelcall``,
 ``src/repro/kernels/decode_attention/kernel.py:59``).  CUDA kernel:
 ``src/repro_torch/csrc/decode_attention.cu`` (bf16 and float32, head widths
-16, 32, 64 and 128, at most 16 query heads per kv head and G * D <= 1024):
+16, 32, 64, 112 and 128, at most 16 query heads per kv head and G * D <=
+1024):
 a split-K flash-decode over chunks of ``CHUNK`` keys in two kernels, which
 one C call launches, with a float32 scratch the wrapper allocates.
 
@@ -26,7 +27,7 @@ from repro_torch.kernels.flash_attention import scale_for
 DEFAULT_BK = 512
 CHUNK = 64  # keys per thread block of the kernels
 NEG = -1e30
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 112, 128)
 _MAX_GROUP = 16
 _MAX_GD = 1024
 _LAUNCHERS = {torch.float32: "repro_decode_attention_f32", torch.bfloat16: "repro_decode_attention_bf16"}

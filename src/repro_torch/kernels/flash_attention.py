@@ -4,10 +4,11 @@ forward and, in float32, backward.
 Port of ``repro.kernels.flash_attention`` (TPU kernel ``_fa_kernel``,
 ``src/repro/kernels/flash_attention/kernel.py:28``).  CUDA kernels:
 ``src/repro_torch/csrc/flash_attention.cu`` (the float32 forward, head
-widths 8, 16, 32, 64 and 128), ``src/repro_torch/csrc/
+widths 8, 16, 32, 64, 112 and 128), ``src/repro_torch/csrc/
 flash_attention_bf16.cu`` (the bf16 forward on the tensor cores, head
-widths 16, 32, 64 and 128) and ``src/repro_torch/csrc/
-flash_attention_bwd.cu`` (the float32 backward: dQ, dK and dV).
+widths 16, 32, 64, 112 and 128) and ``src/repro_torch/csrc/
+flash_attention_bwd.cu`` (the float32 backward: dQ, dK and dV, head widths
+8, 16, 32, 64 and 128).  A CUDA call at another width raises.
 
 The plain version is the JAX package's ``_attend_chunked``: an online
 softmax over KV chunks of ``ATTN_KV_CHUNK`` keys with its rounding points:
@@ -33,9 +34,11 @@ from repro_torch.kernels._lib import LIBRARY, ptr, stream_handle
 # KV-chunk size of the plain version's online-softmax loop.
 ATTN_KV_CHUNK = 1024
 _MAX_GROUP = 128
-# head widths the kernels are built for, per element type
-_HEAD_WIDTHS = {torch.float32: (8, 16, 32, 64, 128), torch.bfloat16: (16, 32, 64, 128)}
-_HEAD_DIMS = _HEAD_WIDTHS[torch.float32]  # the float32 forward's and backward's
+# head widths the forward kernels are built for, per element type, and the
+# float32 backward's (not built for 112: the hybrid family only serves)
+_HEAD_WIDTHS = {torch.float32: (8, 16, 32, 64, 112, 128), torch.bfloat16: (16, 32, 64, 112, 128)}
+_HEAD_DIMS = _HEAD_WIDTHS[torch.float32]
+_BWD_HEAD_DIMS = (8, 16, 32, 64, 128)
 # the backward kernel holds a head's whole problem in shared memory: q and
 # dO rows (S * G), k and v rows (T) and two (S * G, T) tiles, float32
 BWD_SMEM_BYTES = 232448
@@ -193,8 +196,8 @@ def flash_attention_bwd(q, k, v, do, *, causal=True, q_offset: int = 0, kv_len: 
         raise ValueError(f"do {tuple(do.shape)} must be shaped and placed as q {tuple(q.shape)}")
     B, S, K, G, D = q.shape
     T = k.shape[1]
-    if D not in _HEAD_DIMS or bwd_smem_bytes(S, T, G, D) > BWD_SMEM_BYTES:
-        raise ValueError(f"the attention backward kernel takes head widths {_HEAD_DIMS} and a head's q, k, v, dO "
+    if D not in _BWD_HEAD_DIMS or bwd_smem_bytes(S, T, G, D) > BWD_SMEM_BYTES:
+        raise ValueError(f"the attention backward kernel takes head widths {_BWD_HEAD_DIMS} and a head's q, k, v, dO "
                          f"and (S*G, T) tiles within {BWD_SMEM_BYTES} bytes of shared memory; got S={S}, T={T}, "
                          f"G={G}, D={D}")
     return _launch_backward(q, k, v, do, _shape_args(q, T, causal, q_offset, kv_len))
@@ -248,6 +251,9 @@ def flash_attention(q, k, v, *, causal=True, q_offset: int = 0, kv_len: int | No
         shape_args = _shape_args(q, k.shape[1], causal, q_offset, kv_len)  # raises for a width or group not built
         if not grad:
             return _launch_f32(q, k, v, shape_args)
+        if q.shape[4] not in _BWD_HEAD_DIMS:
+            raise ValueError(f"the attention backward kernel takes head widths {_BWD_HEAD_DIMS}; got D={q.shape[4]} "
+                             f"with a gradient")
         if bwd_smem_bytes(q.shape[1], k.shape[1], q.shape[3], q.shape[4]) > BWD_SMEM_BYTES:
             raise ValueError(f"the attention backward kernel holds a head's tiles in {BWD_SMEM_BYTES} bytes of "
                              f"shared memory: S={q.shape[1]}, T={k.shape[1]}, G={q.shape[3]}, D={q.shape[4]} do "

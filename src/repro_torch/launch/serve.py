@@ -13,12 +13,17 @@ manager`` runs the full streaming manager, which fine-tunes its ``SMOKE``
 predictor on the KV touch stream (the attention backward and ``thrash_ce``
 kernels on the card).
 
-``--arch mamba2-370m`` (the ssm family) runs too; it has no KV cache, so
-``--offload`` builds no manager and ``"offload"`` is null, as in the
-reference.  Its SSD scan takes only prompts whose length is a multiple of
-``ssm_chunk`` (256 at full width, 16 at ``--smoke``): any other length
-raises ``ValueError``, in both packages, so the default ``--prompt-len 64``
-fails at full width; pass e.g. ``--prompt-len 2048``.
+``--arch mamba2-370m`` (the ssm family) and ``--arch zamba2-7b`` (the
+hybrid: Mamba-2 layers and one shared attention block every 6 of them, 81
+layers, 6.75B parameters, about 13.5 GB of bf16 weights on the card beside
+its float32 masters) run too; neither gets an offload manager (mamba2 has no
+KV cache, and the reference offloads no hybrid), so ``"offload"`` is null,
+as in the reference.  Their SSD scan takes only prompts whose length is a
+multiple of ``ssm_chunk`` (256 at full width, 16 at ``--smoke``): any other
+length raises ``ValueError``, in both packages, so the default
+``--prompt-len 64`` fails at full width; pass e.g. ``--prompt-len 2048``
+(mamba2) or ``--prompt-len 512`` (zamba2).  ``--arch qwen1.5-4b`` and
+``--arch granite-3-8b`` are dense, as qwen2.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """The model interface of ``repro.models.lm`` for the families ported so far
-(dense, ssm).  A family module exposes::
+(dense, ssm, hybrid).  A family module exposes::
 
     param_specs(cfg, max_seq) -> {path: Spec}
     forward(params, batch, cfg) -> (logits, aux)         # teacher-forced
@@ -17,18 +17,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import dense, mamba2
+from repro_torch.models import dense, hybrid, mamba2
 from repro_torch.models import params as prm
 
-FAMILIES = {"dense": dense, "ssm": mamba2}
+FAMILIES = {"dense": dense, "ssm": mamba2, "hybrid": hybrid}
 
 # The ROADMAP item that ports each family not ported yet.
-_UNPORTED = {"moe": "A6", "hybrid": "A6(b)", "encdec": "A6", "vlm": "A6"}
+_UNPORTED = dict.fromkeys(("moe", "encdec", "vlm"), "A6(c)")
 
 
 def module(cfg: ModelConfig):
     if cfg.family not in FAMILIES:
-        item = _UNPORTED.get(cfg.family, "A6")
+        item = _UNPORTED.get(cfg.family, "A6(c)")
         raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP {item})")
     return FAMILIES[cfg.family]
 

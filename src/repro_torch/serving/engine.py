@@ -6,16 +6,22 @@ Port of ``repro.serving.engine``.  The model runs on the engine's device
 prefills through the flash-attention kernel and attends in every decode
 step through the decode-attention kernel, once per layer; the ssm family
 (Mamba-2) prefills through the SSD-scan kernel, once per layer, and
-decodes its O(1) recurrence in plain PyTorch.  The offload manager's
+decodes its O(1) recurrence in plain PyTorch; the hybrid family (zamba2)
+does both: the SSD-scan kernel once per Mamba-2 layer and the
+flash-attention kernel once per application of its shared attention block
+in prefill, the decode-attention kernel once per application in every
+decode step.  The ssm and hybrid families take only prompts of whole SSD
+chunks (``ssm_chunk``, 256 at full width).  The offload manager's
 residency is simulated, but its decision stream (hits / misses /
 prefetches / thrash) is real and is what the serving benchmarks report.
-As in the reference, only the families with a KV cache (dense, moe, vlm,
-encdec) get an offload manager.
+As in the reference, only the dense, moe, vlm and encdec families get an
+offload manager: the hybrid keeps a KV cache per application but gets none.
 
-The KV cache (L, B, T, K, HD) is allocated at its final length once and
-each decode step writes its token's K/V into it in place at ``pos`` (the
-reference returns an updated copy, ``dynamic_update_slice``); the ssm
-family's conv tails and SSM state are likewise updated in place.  The float32
+The KV cache (L, B, T, K, HD), or (n_apps, B, T, K, HD) for the hybrid, is
+grown to its final length once after the prefill and each decode step
+writes its token's K/V into it in place at ``pos`` (the reference returns
+an updated copy, ``dynamic_update_slice``); the conv tails and SSM states
+are likewise updated in place.  The float32
 master weights are cast to the compute dtype once, when the engine is
 built, which computes the same numbers as the reference's cast per step.
 """
@@ -38,7 +44,7 @@ from repro_torch.serving.offload import KVOffloadManager, LearnedOffloadManager,
 #: full streaming OversubscriptionManager: classifier + per-pattern
 #: predictor, fine-tuned on the KV touch stream + policy engine)
 OFFLOAD_KINDS = {"lru": LRUOffloadManager, "learned": KVOffloadManager, "manager": LearnedOffloadManager}
-#: the families with a KV cache, the only ones the reference offloads
+#: the families the reference offloads (not the hybrid, though it has a KV cache)
 KV_FAMILIES = ("dense", "moe", "vlm", "encdec")
 
 
@@ -68,7 +74,7 @@ class Engine:
 
     def make_manager(self, total: int):
         """The offload manager for a KV cache of ``total`` tokens, or None
-        (no offload kind, or a family without a KV cache)."""
+        (no offload kind, or a family the reference does not offload)."""
         if not self.offload_kind or self.cfg.family not in KV_FAMILIES:
             return None
         n_pages = (total + PAGE_TOKENS - 1) // PAGE_TOKENS
@@ -96,9 +102,11 @@ class Engine:
             pos += 1
         return ServeResult(out, n_new, dataclasses.asdict(mgr.stats) if mgr else None)
 
-    def _grow_cache(self, cache, total):
-        """The self-attention caches padded with zeros to ``total`` tokens
-        (arrays (L, B, S, ...) with S > 4, as in the reference)."""
+    @staticmethod
+    def _grow_cache(cache, total):
+        """The self-attention caches ``k`` and ``v`` padded with zeros to
+        ``total`` tokens along axis 2 ((L or n_apps, B, S, ...) with S > 4, as
+        in the reference); the conv tails and SSM states stay as they are."""
         def grow(a):
             if a.dim() >= 3 and a.shape[2] < total and a.shape[2] > 4:
                 out = a.new_zeros((*a.shape[:2], total, *a.shape[3:]))

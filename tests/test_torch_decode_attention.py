@@ -52,6 +52,7 @@ CASES = [
     (2, 2, 7, 64, 1024, 513),
     (1, 2, 4, 32, 1024, 1024),
     (2, 1, 3, 16, 512, 300),
+    (2, 4, 1, 112, 1024, 513),  # zamba2-7b's head width, past one block
 ]
 
 
@@ -85,6 +86,7 @@ FLASH = [
     (2, 64, 64, 2, 7, 64, {}),
     (1, 128, 128, 2, 3, 32, {"kv_len": 100}),
     (2, 32, 96, 1, 2, 16, {"q_offset": 64}),
+    (1, 64, 64, 2, 1, 112, {}),
 ]
 
 
@@ -114,8 +116,20 @@ DECODE_RTOL, DECODE_ATOL = 2.0 ** -7, 1e-5
 FLASH_RTOL, FLASH_ATOL = 2.0 ** -7, 2e-3
 
 
-def _split_k_decode(q, k, v, kv_len, chunk=64, bk=DA.DEFAULT_BK):
-    """csrc/decode_attention.cu: pass 1 writes each key's scores and each
+def _fmaf_scores(qs, k):
+    """Pass 1's scores as the kernel computes them: one fmaf chain over the
+    head dims in order per (row, key) (each step the exact product and sum,
+    rounded once to float32, through float64)."""
+    kk = k.double().permute(0, 2, 1, 3)  # (B, K, T, D)
+    s = torch.zeros(qs.shape[:3] + (k.shape[1],))
+    for d in range(qs.shape[-1]):
+        s = (qs[..., d, None].double() * kk[:, :, None, :, d] + s.double()).float()
+    return s
+
+
+def _split_k_decode(q, k, v, kv_len, chunk=64, bk=DA.DEFAULT_BK, fmaf=False):
+    """csrc/decode_attention.cu: pass 1 writes each key's scores (``fmaf``:
+    in the kernel's order of sums, else the plain version's) and each
     chunk's max; pass 2 rounds p against the reference's running max M_j
     (the prefix max up to the chunk's own 512-key block), sums l from p
     unrounded and P.V from p in v's dtype; the combine scales each chunk by
@@ -123,7 +137,7 @@ def _split_k_decode(q, k, v, kv_len, chunk=64, bk=DA.DEFAULT_BK):
     B, K, G, D = q.shape
     T = k.shape[1]
     qs = (q * FA.scale_for(D, q.dtype)).float()
-    s = torch.einsum("bkgd,btkd->bkgt", qs, k.float())
+    s = _fmaf_scores(qs, k) if fmaf else torch.einsum("bkgd,btkd->bkgt", qs, k.float())
     s = torch.where(torch.arange(T) < kv_len, s, torch.full_like(s, DA.NEG))
     n_chunks = -(-T // chunk)
     n_act = n_chunks if kv_len <= 0 else -(-min(kv_len, T) // chunk)  # chunks past kv_len: p = 0, alpha = 1
@@ -151,6 +165,25 @@ def test_split_k_decode_emulation_matches_plain(kv_len):
     got = _split_k_decode(q, k, v, kv_len)
     want = DA.decode_attention_plain(q, k, v, kv_len)
     torch.testing.assert_close(got.float(), want.float(), rtol=DECODE_RTOL, atol=DECODE_ATOL)
+
+
+# chip_smoke.DECODE_ATOL_SHORT: at zamba2-7b's decode shape (K 32, G 1, D 112,
+# rows of about 540 keys) the kernel's score order flips the bf16 rounding of
+# some p against the plain version's, which moves an output by more than one
+# ulp of it (atol needed at rtol 2^-7 up to 5.7e-5 over four seeds; on an
+# H100 2.9e-5)
+DECODE_ATOL_SHORT = 1.5e-4
+
+
+@pytest.mark.parametrize("kv_len", [512, 513, 544])
+def test_split_k_decode_in_the_kernels_order_at_head_width_112(kv_len):
+    rng = np.random.default_rng(kv_len)
+    _, (q, k, v) = _inputs(rng, "bfloat16", (2, 32, 1, 112), (2, 544, 32, 112), (2, 544, 32, 112))
+    want = DA.decode_attention_plain(q, k, v, kv_len).float()
+    got = _split_k_decode(q, k, v, kv_len, fmaf=True).float()
+    torch.testing.assert_close(got, want, rtol=DECODE_RTOL, atol=DECODE_ATOL_SHORT)
+    dropped = _split_k_decode(q, k, v, kv_len - 1, fmaf=True).float()
+    assert not torch.allclose(dropped, want, rtol=DECODE_RTOL, atol=DECODE_ATOL_SHORT)
 
 
 def test_split_k_decode_limits_reject_a_dropped_key():
@@ -223,6 +256,7 @@ TILE_FLASH = [
     ((1, 40, 40, 1, 2, 32), {"kv_len": 1}),
     ((1, 3, 70, 1, 128, 64), {"q_offset": 67}),
     ((1, 30, 30, 1, 3, 64), {"q_offset": -5}),
+    ((1, 130, 130, 2, 1, 112), {}),
 ]
 
 

@@ -50,9 +50,9 @@ def test_param_count_and_registry():
     assert PLM.param_count(PQ.CONFIG) == 494_147_456 == JLM.param_count(JQ.CONFIG)
     assert get_config("qwen2-0.5b") is PQ.CONFIG and get_smoke_config("qwen2-0.5b") is PQ.SMOKE
     with pytest.raises(KeyError, match="not ported"):
-        get_config("zamba2-7b")
+        get_config("olmoe-1b-7b")
     with pytest.raises(NotImplementedError, match="not ported"):
-        PLM.param_specs(PQ.SMOKE.replace(family="hybrid"))
+        PLM.param_specs(PQ.SMOKE.replace(family="moe"))
     with pytest.raises(NotImplementedError, match="kv_quant"):
         PLM.param_specs(PQ.SMOKE.replace(kv_quant="int8"))
 

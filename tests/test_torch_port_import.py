@@ -318,3 +318,23 @@ def test_server_defaults_to_the_card(tmp_path):
         cli.main(argv)
     srv = FaultStreamServer(ServerConfig(manager=ManagerConfig(predictor=SMOKE)), device="cpu")
     assert srv.trainer.device.type == "cpu" and srv.dispatcher.engine == "fused"
+
+
+def test_hybrid_model_imports_no_jax():
+    """The hybrid family (zamba2-7b) and its config modules stand alone."""
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    child = _SERVE_CHILD.replace("import repro_torch.launch.serve", "import repro_torch.models.hybrid, "
+                                 "repro_torch.configs.zamba2_7b, repro_torch.configs.qwen1_5_4b, "
+                                 "repro_torch.configs.granite_3_8b, repro_torch.launch.serve")
+    out = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_hybrid_serve_defaults_to_the_card():
+    from repro_torch.launch import serve
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default device is usable here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "zamba2-7b", "--smoke", "--prompt-len", "16", "--new-tokens", "1"])
