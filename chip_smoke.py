@@ -9,6 +9,7 @@
     python3 chip_smoke.py --server
     python3 chip_smoke.py --bench-run
     python3 chip_smoke.py --hybrid
+    python3 chip_smoke.py --moe
 
 Phases, in order; any failure exits non-zero:
 
@@ -343,6 +344,38 @@ Phases, in order; any failure exits non-zero:
               (``--phase-16``), started with phase 8 and waited for after
               phase 15.  ``--hybrid`` runs those phase 3 rows and phase 16
               alone after the build.
+17. moe     — the serving engine on the mixture-of-experts family
+              (expert products as batched matrix products, as in the
+              reference; routing recorded by wrapping
+              ``repro_torch.models.moe.route``) and on qwen3-0.6b (dense,
+              ``qk_norm``): (a) olmoe-1b-7b at full width and 2 layers
+              (1,045,703,168 parameters) with the weights ``numpy_params(lm
+              specs, seed 0)``, batch 2, a 512-token prompt, ``pad_to``
+              1024 and the ``learned`` offload, against the JAX package's
+              run (``experiments/torch/serve_olmoe_ref.npz``): teacher-forced
+              logits at the reference's top-8 ids within ``MOE_ATOL`` in
+              bf16 (32 new tokens, page masses within ``MOE_MASS_RTOL``)
+              and float32 (16); the prefill's routes per layer (SHA-256 of
+              the expert ids and kept choices, load differences, drops),
+              equal in float32 at the layers of ``MOE_ROUTES_EQUAL_F32``,
+              recorded in bf16; the reference's page masses replayed
+              through the ``learned`` and ``lru`` managers with equal stats;
+              both free runs by the fork rule, each launching its attention
+              kernel once per layer, ``decode_attention`` once per layer and
+              step and ``freq_update`` once per step, nothing else; a
+              profiled run; (b) olmoe-1b-7b at full depth (16 layers,
+              6,919,624,704 parameters, bf16 weights drawn on the card), a
+              (2, 512) prompt, 16 new tokens and the ``learned`` offload:
+              finite logits, exact launches, prefill seconds, decode ms per
+              step and peak memory (recorded, not gated); (c)
+              qwen2-moe-a2.7b and qwen3-0.6b at full width and 2 layers as
+              phase 16 (c).  Phase 3 also holds the attention kernels at
+              head width 128 at olmoe's shapes (K 16, G 1; bf16 and float32
+              flash, decode in both dtypes at T 544) and qwen3's (K 8, G 2;
+              bf16) (``moe_kernel_rows``).  The full script runs phase 17
+              in a fifth process (``--phase-17``), started with phase 10
+              and waited for after phase 16.  ``--moe`` runs those phase 3
+              rows and phase 17 alone after the build.
 
 The last lines are the card's ``nvidia-smi`` line, a ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -407,6 +440,12 @@ DECODE_RTOL, DECODE_ATOL = 2.0 ** -7, 1e-5
 # needs up to 5.7e-5 at D 112.  One dropped key needs 0.026, 0.10 and 0.12
 # there.  So 1.5e-4: five times the card's worst, 170 times below a drop
 DECODE_ATOL_SHORT = 1.5e-4
+# the same at olmoe-1b-7b's decode shape (K 16, G 1, D 128, 513-544 keys):
+# phase 3's inputs there need 1.79e-4 on an H100, which the CPU emulation of
+# the kernel's order reproduces to the bit (tests/test_torch_decode_
+# attention.py; up to 1.26e-4 over 12 other seeds); one dropped key needs
+# 0.018 or more.  So 5e-4: 2.8 times the worst need, 36 times below a drop
+DECODE_ATOL_D128 = 5e-4
 # bf16 flash against its plain version: a one-ulp flip of the output, and
 # p rounded against other running maxima (per 64-key tile in the kernel, per
 # chunk in the plain version), each p off by up to 2^-9 of itself on either
@@ -4340,7 +4379,7 @@ def _recording_finite(fn, seen: list):
     return wrapper
 
 
-def serve_timed(eng, prompt, n_new: int) -> tuple:
+def serve_timed(eng, prompt, n_new: int, pad_to: int | None = None) -> tuple:
     """``eng.generate`` as ``launch.serve`` drives it, with launch counts from
     its start, host seconds of its prefill and decode steps, and every
     step's logits checked finite.  Returns (the result, the launches, the
@@ -4358,7 +4397,7 @@ def serve_timed(eng, prompt, n_new: int) -> tuple:
         kernels.reset_launches()
         t0 = time.perf_counter()
         with torch.no_grad():
-            res = eng.generate({"tokens": prompt}, n_new)
+            res = eng.generate({"tokens": prompt}, n_new, pad_to=pad_to)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
@@ -4398,9 +4437,9 @@ def zamba2_full_depth(dev, num_layers: int = 81) -> dict:
 
 
 def dense_config_run(dev, arch: str) -> dict:
-    """Phase 16 (c): one of the dense configs at full width and
-    ``DENSE_RUN``'s depth, bf16 weights drawn on the card, served without an
-    offload manager; then the bf16 flash and decode kernels at its attention
+    """Phase 16 (c) and 17 (c): a config at full width and ``DENSE_RUN``'s
+    depth, bf16 weights drawn on the card, served without an offload
+    manager; then the bf16 flash and decode kernels at its attention
     shapes against their plain versions, and a dropped key rejected by the
     decode limit."""
     import numpy as np
@@ -4479,6 +4518,252 @@ def hybrid_path(dev) -> dict:
     return by_path
 
 
+# --- phase 17: the mixture-of-experts family and qk_norm ----------------------------
+
+OLMOE_REF = ROOT / "experiments" / "torch" / "serve_olmoe_ref.npz"
+# (a): the 2-layer olmoe against the JAX reference; limits from
+# scripts/rehearse_moe_cpu.py (PERF.md §2)
+MOE_ATOL = {"bfloat16": 1.0, "float32": 2e-3}
+MOE_MASS_RTOL = 1e-2
+# the prefill layers whose float32 routes equal JAX's by SHA-256 in the CPU rehearsal: the card must too
+MOE_ROUTES_EQUAL_F32 = (0, 1)
+# (b): olmoe at full depth, bf16 weights drawn on the card; (c): at DENSE_RUN
+MOE_FULL = {"seed": 0, "prompt_seed": 1, "batch": 2, "prompt_len": 512, "n_new": 16}
+MOE_CONFIGS = ("qwen2-moe-a2.7b", "qwen3-0.6b")
+# phase 3's instances at head width 128 (the MoE family's and qwen3's
+# attention), each counted on the paths that run it
+MOE_PATHS = {"bfloat16": ("serve_olmoe", "serve_olmoe_16", "serve_qwen2-moe-a2.7b"), "float32": ("serve_olmoe_f32",),
+             "g2": ("serve_qwen3-0.6b",)}
+MOE_FLASH_CASES = [((2, 512, 512, 16, 1, 128), {}), ((1, 100, 130, 4, 1, 128), {"q_offset": 30}),
+                   ((1, 65, 63, 2, 1, 128), {"kv_len": 40, "causal": False})]
+QWEN3_FLASH_CASES = [((2, 256, 256, 8, 2, 128), {}), ((1, 100, 130, 4, 2, 128), {"q_offset": 30}),
+                     ((1, 65, 63, 2, 2, 128), {"kv_len": 40, "causal": False})]
+MOE_DECODE_CASES = [((2, 16, 1, 128, 544), n) for n in (1, 512, 513, 544)]
+QWEN3_DECODE_CASES = [((2, 8, 2, 128, 272), n) for n in (1, 256, 257, 272)]
+
+
+def moe_kernel_rows(dev) -> list[dict]:
+    """The attention kernels at head width 128 at olmoe-1b-7b's prefill and
+    decode shapes (K 16, G 1) in each dtype its serve runs use, and the bf16
+    ones at qwen3-0.6b's (K 8, G 2); bf16 decode within ``DECODE_ATOL_D128``
+    and ``DECODE_ATOL_SHORT``."""
+    bf, f32, g2 = MOE_PATHS["bfloat16"], MOE_PATHS["float32"], MOE_PATHS["g2"]
+    return [kernel_flash_attention(dev, MOE_FLASH_CASES, ("@D128", f32)),
+            kernel_flash_attention_bf16(dev, MOE_FLASH_CASES, drop_kv_len=500, instance=("@D128", bf)),
+            kernel_flash_attention_bf16(dev, QWEN3_FLASH_CASES, drop_kv_len=250, instance=("@D128G2", g2)),
+            kernel_decode_attention(dev, MOE_DECODE_CASES, "bfloat16", DECODE_ATOL_D128, drop_at=544,
+                                    instance=("@D128", bf)),
+            kernel_decode_attention(dev, QWEN3_DECODE_CASES, "bfloat16", DECODE_ATOL_SHORT, drop_at=272,
+                                    instance=("@D128G2", g2)),
+            kernel_decode_attention(dev, MOE_DECODE_CASES, "float32", drop_at=544, instance=("@D128_f32", f32))]
+
+
+@contextlib.contextmanager
+def port_routes():
+    """While open, every call of the port's MoE routing appends its (expert
+    ids (T, k), kept (T*k,)) as host arrays to the yielded list."""
+    from repro_torch.models import moe
+
+    rec, route = [], moe.route
+
+    def recording(router, xf, cfg):
+        r = route(router, xf, cfg)
+        rec.append((r.idx.cpu().numpy(), r.keep.cpu().numpy()))
+        return r
+
+    moe.route = recording
+    try:
+        yield rec
+    finally:
+        moe.route = route
+
+
+def route_distances(routes, ref, prefix: str, n_experts: int) -> list[dict]:
+    """Each prefill layer's routing against the reference's: its SHA-256 of
+    (ids as int32, kept as uint8) equal or not, the summed |load
+    difference| over the experts and both counts of dropped choices."""
+    import hashlib
+
+    import numpy as np
+
+    out = []
+    for layer, (idx, keep) in enumerate(routes):
+        sha = hashlib.sha256(idx.astype(np.int32).tobytes() + keep.astype(np.uint8).tobytes()).hexdigest()
+        loads = np.bincount(idx.reshape(-1), minlength=n_experts)
+        out.append({"layer": layer, "sha_equal": sha == str(ref[f"{prefix}route_sha256"][layer]),
+                    "load_diff": int(np.abs(loads - ref[f"{prefix}route_loads"][layer]).sum()),
+                    "dropped": int((~keep).sum()), "ref_dropped": int(ref[f"{prefix}route_dropped"][layer])})
+    return out
+
+
+def teacher_forced_moe(eng, ref, prompt, pad_to: int, atol: float, dev, label: str, mass: bool) -> list[dict]:
+    """Prefill the prompt (its routing recorded) and decode the reference's
+    tokens; hold every step's logits to the reference's (``logit_checker``)
+    and, with ``mass``, each step's page masses within ``MOE_MASS_RTOL``.
+    Returns the prefill's route distances."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import moe
+
+    prefix = "" if label == "bf16" else "f32_"
+    want = {k[len(prefix):]: v for k, v in ref.items() if k.startswith(prefix)} if prefix else ref
+    compare, seen = logit_checker(want, atol, dev)
+    S, n_new, mass_err = prompt.shape[1], want["tokens"].shape[1], 0.0
+    with torch.no_grad(), port_routes() as rec:
+        logits, cache = eng.prefill(eng.params, {"tokens": torch.tensor(prompt, device=dev)})
+        routes = rec[:eng.cfg.num_layers]
+    with torch.no_grad():
+        cache = eng._grow_cache(cache, pad_to)
+        compare(0, logits)
+        for i in range(n_new):
+            logits, cache = eng.decode(eng.params, {"token": torch.tensor(want["tokens"][:, i], device=dev),
+                                                    "pos": S + i}, cache)
+            compare(i + 1, logits)
+            if mass:
+                got, _ = eng.page_mass(cache, S + i, int(ref["n_pages"]))
+                w = ref["page_mass"][i].astype(np.float64)
+                mass_err = max(mass_err, float((np.abs(got - w) / np.maximum(np.abs(w), 1e-30))[w > 0].max()))
+    check(mass_err <= MOE_MASS_RTOL, f"{label}: page mass differs from the reference's by rtol {mass_err} > "
+          f"{MOE_MASS_RTOL}")
+    dist = route_distances(routes, ref, prefix, moe.padded_experts(eng.cfg))
+    errs = seen["errs"]
+    print(f"  {label} teacher-forced: {n_new + 1} steps, logits at the reference's top-8 ids within "
+          f"{max(errs):.4g} (atol {atol}; mean of per-step max {np.mean(errs):.4g}), top-1 equal at "
+          f"{seen['top1_checked']} of {(n_new + 1) * len(prompt)} (row, step)s whose margin exceeds {2 * atol}"
+          + (f"; page mass within rtol {mass_err:.3g} ({MOE_MASS_RTOL})" if mass else "")
+          + "; prefill routes " + json.dumps(dist))
+    return dist
+
+
+def moe_reference_checks(dev):
+    """Phase 17 (a) up to its bf16 free run: the bf16 and float32 engines of
+    the reference's 2-layer olmoe held teacher-forced, routes compared, the
+    reference's page masses replayed through the ``learned`` and ``lru``
+    managers, and the float32 free run by the fork rule.  Returns (the bf16
+    engine, the reference, its run record, the prompt, the float32 free
+    run's launches)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.params import numpy_params
+    from repro_torch.serving.engine import OFFLOAD_KINDS, Engine
+
+    ref, run = load_ref(OLMOE_REF)
+    cfg = get_config(run["arch"]).replace(num_layers=run["num_layers"])
+    S, pad_to = run["prompt_len"], run["pad_to"]
+    prompt = np.random.default_rng(run["prompt_seed"]).integers(0, cfg.vocab_size, (run["batch"], S))
+    check(hashlib.sha256(prompt.astype(np.int32).tobytes()).hexdigest() == str(ref["prompt_sha256"]),
+          "the reference's prompt is not default_rng(1)'s")
+    t0 = time.perf_counter()
+    masters = {k: torch.from_numpy(v) for k, v in numpy_params(lm.param_specs(cfg), run["seed"]).items()}
+    eng = Engine(cfg, masters, offload=run["offload"], hbm_fraction=run["hbm_fraction"], device=dev)
+    eng32 = Engine(cfg.replace(dtype="float32"), masters, offload=run["offload"], hbm_fraction=run["hbm_fraction"],
+                   device=dev)
+    del masters
+    _sync(dev)
+    print(f"  engines: {cfg.name} at {cfg.num_layers} layers, {lm.param_count(cfg):,} parameters, bf16 and float32, "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    mgr = eng.make_manager(pad_to)
+    check((mgr.n_pages, mgr.capacity) == (int(ref["n_pages"]), int(ref["capacity"])),
+          "the KV page pool differs from the reference's")
+    dist = teacher_forced_moe(eng, ref, prompt, pad_to, MOE_ATOL["bfloat16"], dev, "bf16", mass=True)
+    dist32 = teacher_forced_moe(eng32, ref, prompt, pad_to, MOE_ATOL["float32"], dev, "float32", mass=False)
+    for layer in MOE_ROUTES_EQUAL_F32:
+        check(dist32[layer]["sha_equal"], f"float32 prefill layer {layer}: routes differ from the reference's "
+              f"({dist32[layer]})")
+    replay = {}
+    for kind in ("learned", "lru"):
+        m = OFFLOAD_KINDS[kind](mgr.n_pages, mgr.capacity, device=dev)
+        for mass, touched in zip(ref["page_mass"].astype(np.float64), ref["touched"]):
+            m.on_attention(mass, np.nonzero(touched)[0])
+        got, want = dataclasses.asdict(m.stats), dict(zip(ref["stat_keys"].tolist(), ref[f"{kind}_stats"].tolist()))
+        check(got == want, f"replayed {kind} stats {got} != JAX reference {want}")
+        replay[kind] = got
+    print(f"  replay: offload stats equal the JAX reference's exactly: {json.dumps(replay)}")
+    n32 = ref["f32_tokens"].shape[1]
+    _sync(dev)
+    kernels.reset_launches()
+    with torch.no_grad():
+        res32 = eng32.generate({"tokens": prompt}, n32, pad_to=pad_to)
+    _sync(dev)
+    launches32 = dict(kernels.LAUNCHES)
+    forks32 = fork_check(res32.tokens, {k[4:]: v for k, v in ref.items() if k.startswith("f32_")}, MOE_ATOL["float32"])
+    stats_equal = res32.offload_stats == dict(zip(ref["stat_keys"].tolist(), ref["f32_learned_stats"].tolist()))
+    print(f"  float32 free run: {n32} tokens, forks {json.dumps(forks32)}, offload stats {res32.offload_stats} "
+          f"({'equal to' if stats_equal else 'other than'} the reference's)")
+    return eng, ref, run, prompt, launches32
+
+
+def olmoe_full_depth(dev, num_layers: int = 16) -> dict:
+    """Phase 17 (b): olmoe-1b-7b at full width and depth (16 layers; fewer
+    only to rehearse it), bf16 weights drawn on the card, a (2, 512) prompt
+    and 16 decode steps with the ``learned`` offload."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    cfg, run = get_config("olmoe-1b-7b").replace(num_layers=num_layers), MOE_FULL
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = Engine(cfg, device_params(lm.param_specs(cfg), dev, run["seed"]), offload="learned", device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    prompt = np.random.default_rng(run["prompt_seed"]).integers(0, cfg.vocab_size, (run["batch"], run["prompt_len"]))
+    res, launches, out = serve_timed(eng, prompt, run["n_new"])
+    out.update({"layers": cfg.num_layers, "parameters": lm.param_count(cfg), "weights_gb": sum(
+        t.numel() * t.element_size() for t in eng.params.values()) / 1e9, "draw_s": draw_s,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "offload_stats": res.offload_stats,
+        "first_tokens": res.tokens[:, :4].tolist()})
+    print("  (b) full depth: " + json.dumps(out))
+    L, n_new = cfg.num_layers, run["n_new"]
+    launch_check(f"the {L}-layer olmoe run", launches, {"flash_attention_bf16": L, "decode_attention": L * n_new,
+                                                        "freq_update": n_new})
+    return launches
+
+
+def moe_path(dev) -> dict:
+    """Phase 17: (a) the 2-layer olmoe against ``serve_olmoe_ref.npz``, (b)
+    olmoe at full depth, (c) qwen2-moe-a2.7b and qwen3-0.6b at two layers.
+    Returns the launches of each serve run, by path."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    eng, ref, run, prompt, launches32 = moe_reference_checks(dev)
+    L, pad_to = eng.cfg.num_layers, run["pad_to"]
+    n32, n_new = ref["f32_tokens"].shape[1], ref["tokens"].shape[1]
+    launch_check("the float32 free run", launches32, {"flash_attention": L, "decode_attention": L * n32,
+                                                      "freq_update": n32})
+    torch.cuda.reset_peak_memory_stats(dev)
+    res, launches, out = serve_timed(eng, prompt, n_new, pad_to=pad_to)
+    out.update({"peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "offload_stats": res.offload_stats,
+                "forks": fork_check(res.tokens, ref, MOE_ATOL["bfloat16"])})
+    print("  bf16 free run: " + json.dumps(out))
+    launch_check("the bf16 free run", launches, {"flash_attention_bf16": L, "decode_attention": L * n_new,
+                                                 "freq_update": n_new})
+    res2 = profile_run("serve olmoe", lambda: eng.generate({"tokens": prompt}, 8, pad_to=pad_to))
+    check(np.array_equal(res2.tokens, res.tokens[:, :8]), "the profiled olmoe serve run gave other tokens")
+    del eng
+    gc.collect()
+    by_path = {"serve_olmoe": launches, "serve_olmoe_f32": launches32, "serve_olmoe_16": olmoe_full_depth(dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in MOE_CONFIGS:
+        by_path[f"serve_{arch}"] = dense_config_run(dev, arch)
+    return by_path
+
+
 class PhaseProcess:
     """Phase ``n`` in a process of its own (``chip_smoke.py --phase-<n>``), so
     that it runs beside later phases of this one; its output goes to a
@@ -4504,7 +4789,7 @@ class PhaseProcess:
         self.log.seek(0)
         lines = self.log.read().splitlines()
         self.log.close()
-        body = lines[next((i + 1 for i, ln in enumerate(lines) if ln.startswith("[2/16]")), 0):]
+        body = lines[next((i + 1 for i, ln in enumerate(lines) if ln.startswith("[2/17]")), 0):]
         for ln in body:
             if not ln.startswith("{") and f"phase {self.n} alone took" not in ln:
                 print(ln)
@@ -4551,6 +4836,11 @@ def main() -> int:
     ap.add_argument("--phase-16", action="store_true",
                     help="after the build, run phase 16 alone and print its launches as the last line (the full "
                          "script runs this beside phases 8-15)")
+    ap.add_argument("--moe", action="store_true",
+                    help="after the build, run phase 3's rows at head width 128 and phase 17 alone (no result line)")
+    ap.add_argument("--phase-17", action="store_true",
+                    help="after the build, run phase 17 alone and print its launches as the last line (the full "
+                         "script runs this beside phases 10-16)")
     ap.add_argument("--phase-14", action="store_true",
                     help="after the build, run phase 14 alone and print its launches as the last line (the full "
                          "script runs this beside phases 10-13)")
@@ -4570,18 +4860,18 @@ def main() -> int:
         print(f"chip_smoke: the port (src/repro_torch) is not next to this script: {exc}", file=sys.stderr)
         return 2
     start = time.perf_counter()
-    phase9 = phase14 = phase15 = phase16 = None
+    phase9 = phase14 = phase15 = phase16 = phase17 = None
     try:
         dev = torch.device("cuda", 0)
         name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
         smi = nvidia_smi_line()
-        print(f"[1/16] device: {name} (count {count}); nvidia-smi: {smi}")
+        print(f"[1/17] device: {name} (count {count}); nvidia-smi: {smi}")
         print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
         t0 = time.perf_counter()
         LIBRARY.cdll()
         how = "built" if LIBRARY.build_seconds is not None else "loaded the existing build"
-        print(f"[2/16] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
+        print(f"[2/17] build: {how} {LIBRARY.path().name} in {time.perf_counter() - t0:.1f} s")
         for line in LIBRARY.ptxas_log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line or line.startswith("=="):
                 print("      " + line.strip())
@@ -4625,6 +4915,18 @@ def main() -> int:
             if args.phase_16:
                 print(json.dumps({"phase_16_launches": launches, "seconds": time.perf_counter() - t16}))
             return 0
+        if args.moe or args.phase_17:
+            t17 = time.perf_counter()
+            if args.moe:
+                for r in moe_kernel_rows(dev):
+                    print(f"  {r['name']:24s} {r['shape']}: kernel {r['ms']:.4f} ms/call (device {r['device_ms']}), "
+                          f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, bound {r['bound_ms']:.6f} ms")
+            launches = moe_path(dev)
+            print(f"      phase 17 alone took {time.perf_counter() - t17:.1f} s; launches " + json.dumps(
+                {path: {k: c for k, c in counts.items() if c} for path, counts in launches.items()}))
+            if args.phase_17:
+                print(json.dumps({"phase_17_launches": launches, "seconds": time.perf_counter() - t17}))
+            return 0
         if args.phase_9:
             t9 = time.perf_counter()
             launches = concurrent_path(dev)
@@ -4638,10 +4940,10 @@ def main() -> int:
             print(json.dumps({"phase_15_launches": launches, "seconds": time.perf_counter() - t15}))
             return 0
 
-        print(f"[3/16] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
+        print(f"[3/17] kernels against their plain versions on the card (at {time.perf_counter() - start:.0f} s)")
         rows = [kernel_evict_select(dev), *kernel_freq_table(dev), kernel_flash_attention(dev),
                 kernel_flash_attention_bf16(dev), kernel_flash_attention_bwd(dev), kernel_decode_attention(dev),
-                kernel_ssd_scan(dev), *kernel_thrash_ce(dev), *zamba2_kernel_rows(dev)]
+                kernel_ssd_scan(dev), *kernel_thrash_ce(dev), *zamba2_kernel_rows(dev), *moe_kernel_rows(dev)]
         thrash_ce_checks(dev, rows)
         for r in rows:
             print(f"  {r['name']:24s} {r['shape']}: kernel {r['ms']:.4f} ms/call (device {r['device_ms']}), "
@@ -4657,16 +4959,16 @@ def main() -> int:
               f"step {tf['step_device_ops_per_call']}")
 
         by_path = {}
-        print(f"[4/16] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
+        print(f"[4/17] main path: run_ours, Hotspot x1.5, CONFIG, frozen table, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         _, by_path["run_ours"] = main_path(dev)
-        print(f"[5/16] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
+        print(f"[5/17] serve: Engine.generate, qwen2-0.5b full width, bf16, learned KV offload, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["serve"], qwen2_engine, qwen2_prompt = serve_path(dev)
-        print(f"[6/16] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
+        print(f"[6/17] serve mamba2: Engine.generate, mamba2-370m full width, bf16, on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["serve_mamba2"] = serve_mamba2_path(dev)
-        print(f"[7/16] train: one train_group, the fine-tuned run_ours (Hotspot x1.5, CONFIG, TrainConfig()) and the "
+        print(f"[7/17] train: one train_group, the fine-tuned run_ours (Hotspot x1.5, CONFIG, TrainConfig()) and the "
               f"manager KV offload (qwen2-0.5b full width), on the card (at {time.perf_counter() - start:.0f} s)")
         by_path["train_group"] = train_group_check(dev)
         print(f"      (b) at {time.perf_counter() - start:.0f} s")
@@ -4676,45 +4978,45 @@ def main() -> int:
         del qwen2_engine
         t16 = time.perf_counter()
         phase9, phase16 = PhaseProcess(9), PhaseProcess(16)
-        print(f"[8/16] tables: the table runner at the paper preset, x1.25, 11 benchmarks (five simulator cells, "
+        print(f"[8/17] tables: the table runner at the paper preset, x1.25, 11 benchmarks (five simulator cells, "
               f"UVMSmart, frozen ours; fine-tuned ours on {len(TABLES_TUNED)}), on the card "
               f"(at {time.perf_counter() - start:.0f} s)")
         by_path["table6"], tables_ctx, tables_tuned = tables_path(dev)
         t9 = time.perf_counter()
-        print(f"[9/16] concurrent: Tables VII and VIII's cells, four pairs at the paper preset, x1.25 (frozen mux and "
+        print(f"[9/17] concurrent: Tables VII and VIII's cells, four pairs at the paper preset, x1.25 (frozen mux and "
               f"merged on all four; fine-tuned and Table VII on {', '.join(CONCURRENT_TUNED)}), on the card, in a "
               f"process started with phase 8 (at {time.perf_counter() - start:.0f} s)")
         by_path["concurrent"], seconds = phase9.result()
         print(f"      phase 9 took {seconds:.1f} s beside phase 8, and {time.perf_counter() - t9:.1f} s more here")
         t10 = time.perf_counter()
-        phase14, phase15 = PhaseProcess(14), PhaseProcess(15)
-        print(f"[10/16] figures: Figs. 3, 12, 13 and 14's cells on {', '.join(FIG3_BENCH)} and Figs. 4 and 11's "
+        phase14, phase15, phase17 = PhaseProcess(14), PhaseProcess(15), PhaseProcess(17)
+        print(f"[10/17] figures: Figs. 3, 12, 13 and 14's cells on {', '.join(FIG3_BENCH)} and Figs. 4 and 11's "
               f"protocols on {FIG_TUNED} at the paper preset, on the card (at {t10 - start:.0f} s)")
         by_path["figures"] = figures_path(dev, tables_ctx, tables_tuned)
         print(f"      phase 10 took {time.perf_counter() - t10:.1f} s")
         t11 = time.perf_counter()
-        print(f"[11/16] zoo and QoS: the JAX package's initial weights, Fig. 10's four predictor kinds on "
+        print(f"[11/17] zoo and QoS: the JAX package's initial weights, Fig. 10's four predictor kinds on "
               f"{FIG10_BENCH}, Table IX's first drift trace, Table X's StreamTriad+RandomScan under budgets and the "
               f"random policy, on the card (at {t11 - start:.0f} s)")
         by_path["zoo_qos"] = zoo_qos_path(dev)
         print(f"      phase 11 took {time.perf_counter() - t11:.1f} s; launches "
               + json.dumps({k: c for k, c in by_path["zoo_qos"].items() if c}))
         t12 = time.perf_counter()
-        print(f"[12/16] fault tolerance: snapshots of the manager (Hotspot frozen, ATAX fine-tuned), the mux "
+        print(f"[12/17] fault tolerance: snapshots of the manager (Hotspot frozen, ATAX fine-tuned), the mux "
               f"(StreamTriad+2DCONV) and the KV offload, the health machine under chaos, plug-ins through run_batch "
               f"and the fault log, on the card (at {t12 - start:.0f} s)")
         by_path["fault_tolerance"] = fault_tolerance_path(dev)
         print(f"      phase 12 took {time.perf_counter() - t12:.1f} s; launches "
               + json.dumps({k: c for k, c in by_path["fault_tolerance"].items() if c}))
         t13 = time.perf_counter()
-        print(f"[13/16] experiment API: cli sweep, sweep --spec, run, export, serve (checkpoint and resume) and "
+        print(f"[13/17] experiment API: cli sweep, sweep --spec, run, export, serve (checkpoint and resume) and "
               f"report on a temporary run store, and run_ours_many over {', '.join(API_LANES)} and "
               f"{'+'.join(API_PAIR)}, on the card (at {t13 - start:.0f} s)")
         by_path["experiment_api"] = experiment_api_path(dev, tables_ctx)
         print(f"      phase 13 took {time.perf_counter() - t13:.1f} s; launches "
               + json.dumps({k: c for k, c in by_path["experiment_api"].items() if c}))
         t14 = time.perf_counter()
-        print(f"[14/16] server: FaultStreamServer in every dispatch mode with run_loadgen's clients on the drift and "
+        print(f"[14/17] server: FaultStreamServer in every dispatch mode with run_loadgen's clients on the drift and "
               f"churn logs, a stacked evaluate_many and train_group_many at CONFIG, isolation, kill -9 and --resume of "
               f"cli server with its AOT cache, and load, on the card, in a process started with phase 10 (at "
               f"{t14 - start:.0f} s)")
@@ -4722,13 +5024,13 @@ def main() -> int:
         print(f"      phase 14 took {seconds:.1f} s beside phases 10-13, and {time.perf_counter() - t14:.1f} s more "
               "here; launches " + json.dumps({k: c for k, c in by_path["server"].items() if c}))
         t15 = time.perf_counter()
-        print(f"[15/16] benchmark driver: python -m repro_torch.bench.run --scale quick --only "
+        print(f"[15/17] benchmark driver: python -m repro_torch.bench.run --scale quick --only "
               f"{' '.join(BENCH_RUN_ONLY)}, on the card, in a process started with phase 10 (at {t15 - start:.0f} s)")
         by_path["bench_run"], seconds = phase15.result()
         print(f"      phase 15 took {seconds:.1f} s beside phases 10-14, and {time.perf_counter() - t15:.1f} s more "
               "here; launches " + json.dumps({k: c for k, c in by_path["bench_run"].items() if c}))
         t16w = time.perf_counter()
-        print(f"[16/16] hybrid: Engine.generate, zamba2-7b at 15 layers against its JAX reference (bf16 and float32) "
+        print(f"[16/17] hybrid: Engine.generate, zamba2-7b at 15 layers against its JAX reference (bf16 and float32) "
               f"and at 81, qwen1.5-4b and granite-3-8b at 2 layers, full width, on the card, in a process started "
               f"with phase 8 (at {t16 - start:.0f} s)")
         paths16, seconds = phase16.result()
@@ -4736,19 +5038,29 @@ def main() -> int:
               "here; launches " + json.dumps({path: {k: c for k, c in counts.items() if c}
                                                for path, counts in paths16.items()}))
         by_path.update(paths16)
+        t17 = time.perf_counter()
+        print(f"[17/17] mixture of experts: Engine.generate, olmoe-1b-7b at 2 layers against its JAX reference (bf16 "
+              f"and float32) and at 16, qwen2-moe-a2.7b and qwen3-0.6b at 2 layers, full width, learned offload, on "
+              f"the card, in a process started with phase 10 (at {t17 - start:.0f} s)")
+        paths17, seconds = phase17.result()
+        print(f"      phase 17 took {seconds:.1f} s beside phases 10-16, and {time.perf_counter() - t17:.1f} s more "
+              "here; launches " + json.dumps({path: {k: c for k, c in counts.items() if c}
+                                               for path, counts in paths17.items()}))
+        by_path.update(paths17)
         for r in rows:
-            # an instance at zamba2-7b's shapes counts its kernel's launches on the paths that run them
+            # an instance at zamba2-7b's or the MoE family's shapes counts its launches on the paths that run it
             r["launches_by_path"] = {path: counts[r.get("instance_of", r["name"])] for path, counts in by_path.items()
                                      if path in r.get("paths", by_path)}
             r["launches"] = sum(r["launches_by_path"].values())
         check(set(by_path["run_ours"]) == {r["name"] for r in rows if "instance_of" not in r}, "a kernel has no row")
-        check(all(r["launches"] > 0 for r in rows if "instance_of" in r), "an instance at zamba2-7b's shapes never launched")
+        check(all(r["launches"] > 0 for r in rows if "instance_of" in r), "a kernel instance at another shape never "
+              "launched")
         print(f"      all phases passed in {time.perf_counter() - start:.0f} s")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     finally:
-        for proc in (phase9, phase14, phase15, phase16):
+        for proc in (phase9, phase14, phase15, phase16, phase17):
             if proc is not None:
                 proc.kill()
     print(smi)

@@ -67,6 +67,19 @@ ulp moved anywhere in a layer moves its logits by tenths, so the same run
 in float32 (``f32_*``: the prompt, then 32 new tokens) is recorded beside
 it, for a tight comparison.  It takes about 9 minutes and 4 GB on a CPU.
 
+    PYTHONPATH=src python scripts/export_torch_reference.py --serve-moe
+
+writes ``experiments/torch/serve_olmoe_ref.npz`` instead (at most 16,000
+B): ``serve_reference`` on ``olmoe-1b-7b`` at full width and 2 layers
+(1,045,703,168 parameters; the MoE layer through the reference's scatter
+path, as with no mesh), weights ``numpy_params`` (seed 0), a (2, 512)
+prompt from ``default_rng(1)`` recorded as its SHA-256, ``pad_to`` 1024,
+the ``learned`` offload: in bf16 32 new tokens, in float32 (``f32_*``) 16,
+each with the prefill's routing per layer (``jax_moe_routes``): the expert
+loads, the dropped choices and the SHA-256 of (expert ids, kept).  The page
+masses are float32 numbers and are stored so.  About 6 minutes and 12 GB
+on a CPU.
+
     PYTHONPATH=src python scripts/export_torch_reference.py --train
 
 writes ``experiments/torch/train_hotspot_ref.npz`` instead: the JAX
@@ -263,6 +276,7 @@ minute on a CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -523,6 +537,109 @@ def export_serve_zamba2() -> None:
                       "routes_top8_ids_equal": bool(same.all()), "routes_max_logit_gap": float(gap.max(initial=0)),
                       "routes_max_state_norm_rel_gap": float(sgap.max()), "seconds": float(ref["seconds"]),
                       "f32_first_tokens": ref["f32_tokens"][:, :8].tolist(), "f32_seconds": float(ref["f32_seconds"])}))
+
+
+SERVE_MOE = {"arch": "olmoe-1b-7b", "num_layers": 2, "seed": 0, "prompt_seed": 1, "batch": 2, "prompt_len": 512,
+             "n_new": 32, "pad_to": 1024, "offload": "learned", "hbm_fraction": 0.5, "f32_new": 16}
+
+
+@contextlib.contextmanager
+def jax_moe_routes():
+    """While open, every trace of the JAX MoE layer's scatter path records
+    each call's routing, by the reference's own ``_local_dispatch`` on its
+    float32 logits: yields the list it appends to, one (expert ids (T, k)
+    int32, kept (T*k,) bool, the top k+1 router probabilities (T, k+1)) per
+    call, in call order (``jax.effects_barrier()`` before reading it)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.models import moe
+
+    rec = []
+    scatter = moe._moe_ffn_scatter
+
+    def recording(p, x, cfg):
+        T = x.shape[0] * x.shape[1]
+        xf = x.reshape(T, x.shape[-1])
+        E, Ep, k = cfg.num_experts, p["wg"].shape[0], cfg.top_k
+        logits = (xf @ p["router"].astype(jnp.float32)).astype(jnp.float32)
+        _, (flat_e, _, keep, _, _, _), _ = moe._local_dispatch(xf, logits, cfg, E, Ep, moe.capacity(cfg, T), x.dtype)
+        if Ep > E:
+            logits = jnp.where(jnp.arange(Ep) >= E, -1e30, logits)
+        top, _ = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), min(k + 1, Ep))
+        jax.debug.callback(lambda *a: rec.append(tuple(np.asarray(v) for v in a)), flat_e.reshape(T, k), keep, top,
+                           ordered=True)
+        return scatter(p, x, cfg)
+
+    moe._moe_ffn_scatter = recording
+    try:
+        yield rec
+    finally:
+        moe._moe_ffn_scatter = scatter
+
+
+def route_record(idx, keep, n_experts: int) -> tuple:
+    """One layer's routing as recorded: its expert loads (choices routed to
+    each expert, kept or not), its dropped choices and the SHA-256 of (ids
+    as int32, kept as uint8)."""
+    import hashlib
+
+    import numpy as np
+
+    idx, keep = np.asarray(idx, np.int32), np.asarray(keep, bool)
+    sha = hashlib.sha256(idx.tobytes() + keep.astype(np.uint8).tobytes()).hexdigest()
+    return np.bincount(idx.reshape(-1), minlength=n_experts).astype(np.int32), int((~keep).sum()), sha
+
+
+def moe_serve_reference(cfg, run: dict, n_new: int) -> dict:
+    """``serve_reference`` with the prefill's routing per layer."""
+    import hashlib
+
+    import jax
+    import numpy as np
+
+    from repro.models import moe
+
+    kw = {k: run[k] for k in ("seed", "prompt_seed", "batch", "prompt_len", "pad_to", "offload", "hbm_fraction")}
+    with jax_moe_routes() as rec:
+        ref = serve_reference(cfg, **kw, n_new=n_new)
+        jax.effects_barrier()
+    L = cfg.num_layers
+    assert len(rec) == L * (n_new + 1), len(rec)
+    loads, dropped, shas = zip(*(route_record(i, kp, moe.padded_experts(cfg)) for i, kp, _ in rec[:L]))
+    masses = ref["page_mass"].astype(np.float32)
+    assert np.array_equal(masses.astype(np.float64), ref["page_mass"])
+    prompt = ref.pop("prompt")
+    ref.update({"prompt_sha256": np.array(hashlib.sha256(np.ascontiguousarray(prompt, np.int32).tobytes()).hexdigest()),
+                "page_mass": masses, "route_loads": np.stack(loads), "route_dropped": np.array(dropped, np.int32),
+                "route_sha256": np.array(shas), "decode_dropped": np.int32(sum(int((~kp).sum()) for _, kp, _ in rec[L:]))})
+    return ref
+
+
+def export_serve_moe() -> None:
+    import numpy as np
+
+    from repro.configs import get_config
+
+    run = SERVE_MOE
+    cfg = get_config(run["arch"]).replace(num_layers=run["num_layers"])
+    ref = moe_serve_reference(cfg, run, run["n_new"])
+    f32 = moe_serve_reference(cfg.replace(dtype="float32"), run, run["f32_new"])
+    for k in ("prompt_sha256", "page_mass", "touched", "lru_stats", "stat_keys", "n_pages", "capacity"):
+        del f32[k]
+    ref.update({f"f32_{k}": v for k, v in f32.items()})
+    OUT.mkdir(parents=True, exist_ok=True)
+    path = OUT / "serve_olmoe_ref.npz"
+    np.savez_compressed(path, run=np.array(json.dumps(SERVE_MOE)), **ref)
+    size = path.stat().st_size
+    print(json.dumps({"bytes": size, "first_tokens": ref["tokens"][:, :8].tolist(),
+                      "learned": dict(zip(ref["stat_keys"].tolist(), ref["learned_stats"].tolist())),
+                      "route_dropped": ref["route_dropped"].tolist(), "f32_route_dropped": ref["f32_route_dropped"].tolist(),
+                      "route_max_load": ref["route_loads"].max(1).tolist(), "decode_dropped": int(ref["decode_dropped"]),
+                      "seconds": float(ref["seconds"]), "f32_first_tokens": ref["f32_tokens"][:, :8].tolist(),
+                      "f32_seconds": float(ref["f32_seconds"])}))
+    assert size <= 16_000, size
 
 
 def export_serve() -> None:
@@ -1942,6 +2059,7 @@ def main() -> None:
     ap.add_argument("--serve", action="store_true", help="write serve_qwen2_ref.npz (and nothing else)")
     ap.add_argument("--serve-mamba2", action="store_true", help="write serve_mamba2_ref.npz (and nothing else)")
     ap.add_argument("--serve-zamba2", action="store_true", help="write serve_zamba2_ref.npz (and nothing else)")
+    ap.add_argument("--serve-moe", action="store_true", help="write serve_olmoe_ref.npz (and nothing else)")
     ap.add_argument("--train", action="store_true", help="write train_hotspot_ref.npz (and nothing else)")
     ap.add_argument("--serve-manager", action="store_true", help="write serve_manager_ref.npz (and nothing else)")
     ap.add_argument("--tables", action="store_true", help="write tables_paper_ref.json (and nothing else)")
@@ -1995,6 +2113,9 @@ def main() -> None:
         return
     if args.serve_zamba2:
         export_serve_zamba2()
+        return
+    if args.serve_moe:
+        export_serve_moe()
         return
     if args.cache_dir is None:
         os.environ["REPRO_PRETRAIN_CACHE"] = "0"

@@ -14,12 +14,15 @@ _MODULES = {
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
+    "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
     "predictor-paper": "repro_torch.configs.predictor_paper",
 }
 
 # The JAX package's other architectures (``repro.configs._MODULES``) and the
-# ROADMAP item that ports each: the rest of the LM zoo, A6(c).
-NOT_PORTED = dict.fromkeys(("whisper-medium", "olmoe-1b-7b", "qwen2-moe-a2.7b", "qwen3-0.6b", "internvl2-26b"), "A6(c)")
+# ROADMAP item that ports each: the encoder-decoder and the VLM, A6(c).
+NOT_PORTED = dict.fromkeys(("whisper-medium", "internvl2-26b"), "A6(c)")
 
 
 def _module(name: str):

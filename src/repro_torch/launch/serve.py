@@ -22,8 +22,17 @@ as in the reference.  Their SSD scan takes only prompts whose length is a
 multiple of ``ssm_chunk`` (256 at full width, 16 at ``--smoke``): any other
 length raises ``ValueError``, in both packages, so the default
 ``--prompt-len 64`` fails at full width; pass e.g. ``--prompt-len 2048``
-(mamba2) or ``--prompt-len 512`` (zamba2).  ``--arch qwen1.5-4b`` and
-``--arch granite-3-8b`` are dense, as qwen2.
+(mamba2) or ``--prompt-len 512`` (zamba2).  ``--arch qwen1.5-4b``,
+``--arch granite-3-8b`` and ``--arch qwen3-0.6b`` (with ``qk_norm``) are
+dense, as qwen2.
+
+``--arch olmoe-1b-7b`` and ``--arch qwen2-moe-a2.7b`` are the
+mixture-of-experts family, offloaded as the dense family is.  As in the
+reference, ``lm.init`` draws float32 masters on the host and the engine
+keeps them beside their bf16 cast on the card: olmoe (6.9B parameters)
+then holds about 27.7 GB of masters and 13.8 GB of bf16 weights, and
+qwen2-moe (15.1B) would need about 60.6 GB and 30.3 GB, more than one 80
+GB card holds.
 """
 from __future__ import annotations
 

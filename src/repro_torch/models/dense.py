@@ -1,5 +1,5 @@
 """Dense Transformer blocks (the predictor's regular and irregular stacks)
-and the dense decoder-only LM family (qwen2).
+and the dense decoder-only LM family (qwen2, qwen3 with its ``qk_norm``).
 
 Layers are stacked along a leading "layers" axis of every parameter, as in
 the JAX package; :func:`block` runs one layer's slice (:func:`block_many`
@@ -48,8 +48,7 @@ def block(lp, x, cfg, *, positions, causal=True):
 
 
 def _check_supported(cfg) -> None:
-    unported = {"norm": (cfg.norm, "rms"), "act": (cfg.act, "swiglu"), "qk_norm": (cfg.qk_norm, False),
-                "kv_quant": (cfg.kv_quant, "none")}
+    unported = {"norm": (cfg.norm, "rms"), "act": (cfg.act, "swiglu"), "kv_quant": (cfg.kv_quant, "none")}
     for name, (got, ported) in unported.items():
         if got != ported:
             raise NotImplementedError(f"{cfg.name}: {name}={got!r} is not ported yet (the port runs {name}={ported!r})")

@@ -1,8 +1,9 @@
-"""Transformer layers of the predictor and the dense LM: rms norm, rotary
-embeddings, grouped-query self attention (with optional qkv bias and a
-one-token decode step against a cache), the swiglu MLP and tied or untied
-embeddings.  Plain functions over flat param dicts, in the JAX package's
-layouts (q (B,S,H,D), k/v (B,T,K,D)).
+"""Transformer layers of the predictor and the LMs: rms norm, rotary
+embeddings, grouped-query self attention (with optional qkv bias, an
+optional rms norm of q and k over the head width, and a one-token decode
+step against a cache), the swiglu MLP and tied or untied embeddings.
+Plain functions over flat param dicts, in the JAX package's layouts (q
+(B,S,H,D), k/v (B,T,K,D)).
 
 :func:`attention_core` goes through the kernel wrappers, as the JAX
 package's ``use_pallas()`` branches do: a query of one token through
@@ -82,6 +83,9 @@ def attn_specs(cfg, stack=()) -> dict[str, Spec]:
         sp["bq"] = Spec(stack + (H, HD), st + ("heads", None), "zeros")
         sp["bk"] = Spec(stack + (K, HD), st + ("kv_heads", None), "zeros")
         sp["bv"] = Spec(stack + (K, HD), st + ("kv_heads", None), "zeros")
+    if cfg.qk_norm:
+        sp["q_norm"] = Spec(stack + (HD,), st + (None,), "ones")
+        sp["k_norm"] = Spec(stack + (HD,), st + (None,), "ones")
     return sp
 
 
@@ -91,6 +95,9 @@ def _project_qkv(p, x, cfg, positions):
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if cfg.pos == "rope" and positions is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)

@@ -1,5 +1,5 @@
 """The model interface of ``repro.models.lm`` for the families ported so far
-(dense, ssm, hybrid).  A family module exposes::
+(dense, moe, ssm, hybrid).  A family module exposes::
 
     param_specs(cfg, max_seq) -> {path: Spec}
     forward(params, batch, cfg) -> (logits, aux)         # teacher-forced
@@ -14,16 +14,17 @@ the reference's per-step ``cast_tree`` without a cast per step.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import dense, hybrid, mamba2
+from repro_torch.models import dense, hybrid, mamba2, moe
 from repro_torch.models import params as prm
 
-FAMILIES = {"dense": dense, "ssm": mamba2, "hybrid": hybrid}
+FAMILIES = {"dense": dense, "moe": moe, "ssm": mamba2, "hybrid": hybrid}
 
 # The ROADMAP item that ports each family not ported yet.
-_UNPORTED = dict.fromkeys(("moe", "encdec", "vlm"), "A6(c)")
+_UNPORTED = dict.fromkeys(("encdec", "vlm"), "A6(c)")
 
 
 def module(cfg: ModelConfig):
@@ -46,6 +47,18 @@ def init(seed: int, cfg: ModelConfig, max_seq: int = 0, dtype=torch.float32, dev
 
 def param_count(cfg: ModelConfig, max_seq: int = 0) -> int:
     return prm.param_count(param_specs(cfg, max_seq))
+
+
+def active_param_count(cfg: ModelConfig, max_seq: int = 0) -> int:
+    """Params touched per token (MoE: only top_k of the routed experts; the
+    reference divides by the padded expert count, ``shape[1]``)."""
+    total = 0
+    for path, s in param_specs(cfg, max_seq).items():
+        n = int(np.prod(s.shape))
+        if cfg.family == "moe" and "/moe/w" in path:
+            n = int(n * cfg.top_k / max(s.shape[1], 1))  # (L, E, ...)
+        total += n
+    return total
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:

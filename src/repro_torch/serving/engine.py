@@ -4,26 +4,29 @@ an optional KV offload manager driven by attention mass.
 Port of ``repro.serving.engine``.  The model runs on the engine's device
 (the card unless the caller passes ``device="cpu"``).  The dense family
 prefills through the flash-attention kernel and attends in every decode
-step through the decode-attention kernel, once per layer; the ssm family
-(Mamba-2) prefills through the SSD-scan kernel, once per layer, and
-decodes its O(1) recurrence in plain PyTorch; the hybrid family (zamba2)
-does both: the SSD-scan kernel once per Mamba-2 layer and the
-flash-attention kernel once per application of its shared attention block
-in prefill, the decode-attention kernel once per application in every
-decode step.  The ssm and hybrid families take only prompts of whole SSD
-chunks (``ssm_chunk``, 256 at full width).  The offload manager's
-residency is simulated, but its decision stream (hits / misses /
-prefetches / thrash) is real and is what the serving benchmarks report.
-As in the reference, only the dense, moe, vlm and encdec families get an
-offload manager: the hybrid keeps a KV cache per application but gets none.
+step through the decode-attention kernel, once per layer, and so does the
+moe family (olmoe, qwen2-moe), whose experts are batched matrix products
+between its attention layers; the ssm family (Mamba-2) prefills through
+the SSD-scan kernel, once per layer, and decodes its O(1) recurrence in
+plain PyTorch; the hybrid family (zamba2) does both: the SSD-scan kernel
+once per Mamba-2 layer and the flash-attention kernel once per
+application of its shared attention block in prefill, the
+decode-attention kernel once per application in every decode step.  The
+ssm and hybrid families take only prompts of whole SSD chunks
+(``ssm_chunk``, 256 at full width).  The offload manager's residency is
+simulated, but its decision stream (hits / misses / prefetches / thrash)
+is real and is what the serving benchmarks report.  As in the reference,
+only the dense, moe, vlm and encdec families get an offload manager: the
+hybrid keeps a KV cache per application but gets none.
 
-The KV cache (L, B, T, K, HD), or (n_apps, B, T, K, HD) for the hybrid, is
-grown to its final length once after the prefill and each decode step
-writes its token's K/V into it in place at ``pos`` (the reference returns
-an updated copy, ``dynamic_update_slice``); the conv tails and SSM states
-are likewise updated in place.  The float32
-master weights are cast to the compute dtype once, when the engine is
-built, which computes the same numbers as the reference's cast per step.
+The KV cache, (L, B, T, K, HD) for the dense and moe families and (n_apps,
+B, T, K, HD) for the hybrid, is grown to its final length once after the
+prefill and each decode step writes its token's K/V into it in place at
+``pos`` (the reference returns an updated copy,
+``dynamic_update_slice``); the conv tails and SSM states are likewise
+updated in place.  The float32 master weights are cast to the compute
+dtype once, when the engine is built, which computes the same numbers as
+the reference's cast per step.
 """
 from __future__ import annotations
 

@@ -158,6 +158,8 @@ def _mk(rng, dtype, dev):
     ((2, 100, 130, 2, 7, 64), {"q_offset": 30}),
     ((1, 33, 33, 1, 4, 32), {"kv_len": 20}),
     ((2, 512, 512, 32, 1, 112), {}),  # zamba2-7b's prefill at the reference's prompt
+    ((2, 512, 512, 16, 1, 128), {}),  # olmoe-1b-7b's and qwen2-moe's prefill (G 1, D 128)
+    ((2, 256, 256, 8, 2, 128), {}),  # qwen3-0.6b's prefill (G 2, D 128)
 ])
 def test_flash_attention_bf16_and_f32_match_plain(dev, dtype, shape, kw):
     B, S, T, K, G, D = shape
@@ -177,6 +179,7 @@ def test_flash_attention_bf16_and_f32_match_plain(dev, dtype, shape, kw):
     (2, 2, 7, 64, 2048, 513), (2, 2, 7, 64, 2048, 1800), (2, 2, 7, 64, 2048, 2048),
     (1, 2, 1, 128, 520, 520), (3, 1, 4, 32, 64, 40), (2, 2, 16, 64, 700, 650),
     (2, 32, 1, 112, 544, 513), (2, 32, 1, 112, 544, 544), (1, 3, 9, 112, 70, 65),
+    (2, 8, 2, 128, 272, 257), (2, 8, 2, 128, 272, 272),  # qwen3-0.6b's decode (G 2, D 128)
 ])
 def test_decode_attention_matches_plain(dev, dtype, B, K, G, D, T, kv_len):
     mk = _mk(np.random.default_rng(T + kv_len + G), dtype, dev)

@@ -338,3 +338,24 @@ def test_hybrid_serve_defaults_to_the_card():
         pytest.skip("a CUDA card is visible: the default device is usable here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "zamba2-7b", "--smoke", "--prompt-len", "16", "--new-tokens", "1"])
+
+
+def test_moe_model_imports_no_jax():
+    """The MoE family (olmoe-1b-7b, qwen2-moe-a2.7b) and the three config
+    modules of its slice (qwen3-0.6b is dense) stand alone."""
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    child = _SERVE_CHILD.replace("import repro_torch.launch.serve", "import repro_torch.models.moe, "
+                                 "repro_torch.configs.olmoe_1b_7b, repro_torch.configs.qwen2_moe_a2_7b, "
+                                 "repro_torch.configs.qwen3_0_6b, repro_torch.launch.serve")
+    out = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_moe_serve_defaults_to_the_card():
+    from repro_torch.launch import serve
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default device is usable here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "olmoe-1b-7b", "--smoke", "--prompt-len", "16", "--new-tokens", "1"])
